@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Where the port's main-path time goes on one NVIDIA GPU.
+
+Run from the repository root with no arguments: ``python3 chip_profile.py``.
+It builds the same pipeline as ``chip_smoke.py``'s main path (FULL_CONFIG,
+random weights from seed 0, bfloat16 generator, frame_chunk 32,
+time_bucket 32, TF32 off), warms it up on a 1 s clip, and then, for a
+10 s clip:
+
+1. ``stages``: host-clock seconds of the pipeline's stages, each ended by
+   ``torch.cuda.synchronize()``: host preparation and upload, MFCC,
+   ``clip_keypoints``, ``decode_clip`` and the copy to the host; three
+   repetitions.
+2. ``profile``: one ``render_uint8`` call under ``torch.profiler`` (CPU and
+   CUDA activity): the wall seconds, the summed device time of all
+   kernels and copies, the operators whose own launches took the most
+   device time (self time, so nested operators are not counted twice), and
+   the kernels that took the most.
+
+Each prints one JSON line.  Without a CUDA device it exits non-zero before
+printing any result.
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+import torch
+
+from chip_smoke import FULL_CONFIG, card_line, clip_inputs
+from eamm_tpu_torch.infer import EammPipeline, PipelineOptions
+from eamm_tpu_torch.ops.mfcc import audio_to_mfcc_windows
+
+TOP = 25
+
+
+def stages(pipe: EammPipeline, clip) -> dict:
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.no_grad():
+        (T, source, wav, pose), t_prep = timed(lambda: pipe._prepare(*clip))
+        windows, t_mfcc = timed(
+            lambda: audio_to_mfcc_windows(wav)[:pose.shape[0]])
+        (kp_norm, kp_s), t_kp = timed(
+            lambda: pipe.clip_keypoints(source, windows, pose))
+        frames, t_dec = timed(lambda: pipe.decode_clip(source, kp_norm, kp_s))
+        _, t_host = timed(lambda: frames[:T].cpu().numpy())
+    return {"frames": T, "prepare_s": t_prep, "mfcc_s": t_mfcc,
+            "keypoints_s": t_kp, "decode_s": t_dec, "to_host_s": t_host}
+
+
+def profile(pipe: EammPipeline, clip) -> dict:
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch_profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        pipe.render_uint8(*clip)
+        wall = time.perf_counter() - t0
+
+    def self_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0.0))
+
+    def rows(evts):
+        return [{"name": e.key[:120], "count": e.count,
+                 "self_device_ms": self_us(e) / 1e3}
+                for e in sorted(evts, key=self_us, reverse=True)[:TOP]]
+
+    from torch.autograd import DeviceType
+    events = [e for e in prof.key_averages() if self_us(e) > 0]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    ops = [e for e in events if e.device_type != DeviceType.CUDA]
+    return {"wall_s": wall,
+            "device_s": sum(self_us(e) for e in kernels) / 1e6,
+            "ops": rows(ops), "kernels": rows(kernels)}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    print(card_line(), flush=True)
+    torch.backends.cudnn.allow_tf32 = False       # as chip_smoke.py runs it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pipe = EammPipeline.from_random(FULL_CONFIG, 0, PipelineOptions(
+        frame_chunk=32, time_bucket=32, compute_dtype=torch.bfloat16))
+    pipe.render_uint8(*clip_inputs(1.0, 100))              # warm-up
+    clip = clip_inputs(10.0, 3)
+    for rep in range(3):
+        print(json.dumps({"phase": "stages", "rep": rep,
+                          **stages(pipe, clip)}), flush=True)
+    print(json.dumps({"phase": "profile", **profile(pipe, clip)}), flush=True)
+    print(card_line(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

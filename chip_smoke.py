@@ -1,0 +1,380 @@
+#!/usr/bin/env python3
+"""Build the port's CUDA kernels and drive its main path on one NVIDIA GPU.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It needs one CUDA device and ``nvcc``; without a device it exits non-zero
+before printing any result.  It imports ``eamm_tpu_torch``, torch, numpy
+and the standard library, nothing of JAX.
+
+Phases, each printing one JSON line; any failure raises (exit code 1):
+
+1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA
+   versions; TF32 is switched off for cuDNN and matmul, so float32 phases
+   run in full float32.
+2. build: every ``eamm_tpu_torch/csrc/*.cu``, one nvcc each, in parallel;
+   seconds and ptxas's registers, shared memory and spills per kernel.
+3. kernel parity: each kernel against its plain PyTorch version on the
+   card at the main path's shapes, plus a second source (Bi=2) and a pixel
+   count that is not a multiple of the block; grids from U(-1.2, 1.2) put
+   corners outside the image.  Warp grids come in the image dtype, as on
+   the main path, plus one case each in the other dtype.  float32 within
+   1e-5 (abs and rel); bfloat16 within 1e-2 (abs and rel: one output
+   rounding on unit-scale data).
+4. CPU vs card: the same seeded weights and clip rendered by the port on
+   the CPU (plain versions) and on the card (kernels) at TINY_CONFIG
+   widths in float32; per-frame mean |difference| max < 1e-2, mean < 3e-3.
+5. main path: one pipeline at FULL_CONFIG, bfloat16 generator,
+   frame_chunk 32, time_bucket 32, serving 1 s, 4 s and 10 s requests; per
+   request the frames, wall seconds and fps, and each kernel's launches
+   (counts zeroed just before the request, read just after; each must be
+   > 0).  The 4 s clip again in float32: bfloat16 within mean 0.5 and
+   99th percentile 2 uint8 counts of it.  Peak device memory.
+6. kernel times: CUDA events over many launches after warm-up at the
+   main-path shapes: the kernel, its plain version, one PyTorch library
+   call computing the same function where there is one, and the bound
+   (the larger of bytes at 3.35 TB/s and operations at 67 TFLOP/s f32).
+
+Then the card's name and power limit, the ``{"kernels": [...]}`` line, and
+last ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from eamm_tpu_torch import kernels
+from eamm_tpu_torch.infer import EammPipeline, PipelineOptions
+from eamm_tpu_torch.ops import kp_expectation as kpx
+from eamm_tpu_torch.ops import warp_cuda
+
+# the published widths (bench.py FULL_CONFIG)
+FULL_CONFIG = {
+    "model_params": {
+        "common_params": {"num_kp": 10, "num_channels": 3,
+                          "estimate_jacobian": True},
+        "audio_params": {"num_kp": 10, "num_channels": 3, "num_channels_a": 3,
+                         "estimate_jacobian": True},
+        "kp_detector_params": {"temperature": 0.1, "block_expansion": 32,
+                               "max_features": 1024, "scale_factor": 0.25,
+                               "num_blocks": 5},
+        "generator_params": {"block_expansion": 64, "max_features": 512,
+                             "num_down_blocks": 2, "num_bottleneck_blocks": 6,
+                             "estimate_occlusion_map": True,
+                             "dense_motion_params": {
+                                 "block_expansion": 64, "max_features": 1024,
+                                 "num_blocks": 5, "scale_factor": 0.25}},
+        "discriminator_params": {"scales": [1], "block_expansion": 32,
+                                 "max_features": 512, "num_blocks": 4,
+                                 "sn": True},
+    },
+    "train_params": {"jaco_net": "cnn"},
+}
+
+# narrow widths of the test suite (tests/conftest.py TINY_CONFIG)
+TINY_CONFIG = {
+    "model_params": {
+        "common_params": {"num_kp": 10, "num_channels": 3,
+                          "estimate_jacobian": True},
+        "audio_params": {"num_kp": 10, "num_channels": 3, "num_channels_a": 3,
+                         "estimate_jacobian": True},
+        "kp_detector_params": {"temperature": 0.1, "block_expansion": 8,
+                               "max_features": 32, "scale_factor": 0.25,
+                               "num_blocks": 3},
+        "generator_params": {"block_expansion": 8, "max_features": 32,
+                             "num_down_blocks": 2, "num_bottleneck_blocks": 1,
+                             "estimate_occlusion_map": True,
+                             "dense_motion_params": {
+                                 "block_expansion": 8, "max_features": 32,
+                                 "num_blocks": 3, "scale_factor": 0.25}},
+        "discriminator_params": {"scales": [1], "block_expansion": 8,
+                                 "max_features": 32, "num_blocks": 3,
+                                 "sn": True},
+    },
+    "train_params": {"jaco_net": "cnn"},
+}
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+REQUEST_SECONDS = (1.0, 4.0, 10.0)
+
+# name -> (wrapper, plain version, source, TPU kernel it replaces)
+KERNELS = {
+    "warp_wide": (warp_cuda.grid_sample_wide, warp_cuda.grid_sample_plain,
+                  "eamm_tpu_torch/csrc/warp.cu",
+                  "eamm_tpu/ops/warp_pallas.py:244"),
+    "warp_narrow": (warp_cuda.grid_sample_narrow, warp_cuda.grid_sample_plain,
+                    "eamm_tpu_torch/csrc/warp.cu",
+                    "eamm_tpu/ops/warp_pallas.py:143"),
+    "kp_expectation": (kpx.kp_expectation, kpx.kp_expectation_plain,
+                       "eamm_tpu_torch/csrc/kp_expectation.cu",
+                       "eamm_tpu/ops/kp_expectation.py:110"),
+}
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def launch_counts() -> dict:
+    return {name: k[0].launches for name, k in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for wrapper, *_ in KERNELS.values():
+        wrapper.launches = 0
+
+
+def clip_inputs(seconds: float, seed: int):
+    rng = np.random.RandomState(seed)
+    src = rng.rand(256, 256, 3).astype(np.float32)
+    wav = (0.1 * rng.randn(int(16000 * seconds))).astype(np.float32)
+    pose = rng.randn(1, 7).astype(np.float32)
+    return src, wav, pose
+
+
+# ---------------------------------------------------------------- phase 3
+
+def warp_case(Bi: int, B: int, hw: tuple[int, int], C: int,
+              dtype: torch.dtype, gen: torch.Generator,
+              grid_dtype: torch.dtype | None = None):
+    """A random [Bi,64,64,C] image and a [B,*hw,2] grid in U(-1.2, 1.2),
+    the grid in the image dtype unless ``grid_dtype`` is given."""
+    image = torch.randn((Bi, 64, 64, C), generator=gen, device="cuda"
+                        ).to(dtype)
+    grid = torch.rand((B, *hw, 2), generator=gen, device="cuda") * 2.4 - 1.2
+    return (image, grid.to(grid_dtype or dtype))
+
+
+def kp_case(B: int, gen: torch.Generator, h: int = 58, w: int = 58):
+    """pred and jmap as the heads pass them: slices of one conv output."""
+    y = torch.randn((B, 50, h, w), generator=gen, device="cuda")
+    return (y[:, :10], y[:, 10:].view(B, 10, 4, h, w), 0.1)
+
+
+def parity() -> dict:
+    """Every kernel against its plain version; returns the largest |error|
+    per kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for Bi, B, hw in ((1, 32, (64, 64)), (2, 32, (64, 64)), (1, 3, (5, 7))):
+            cases.append(("warp_wide", dtype,
+                          warp_case(Bi, B, hw, 256, dtype, gen)))
+        for Bi, B, hw in ((1, 352, (64, 64)), (2, 352, (64, 64)),
+                          (1, 3, (5, 7))):
+            cases.append(("warp_narrow", dtype,
+                          warp_case(Bi, B, hw, 3, dtype, gen)))
+        other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+        for name, C in (("warp_wide", 256), ("warp_narrow", 3)):
+            cases.append((name, dtype, warp_case(1, 4, (64, 64), C, dtype, gen,
+                                                 grid_dtype=other)))
+    for B, hw in ((256, (58, 58)), (1, (58, 58)), (3, (13, 17))):
+        cases.append(("kp_expectation", torch.float32, kp_case(B, gen, *hw)))
+    worst = {name: 0.0 for name in KERNELS}
+    for name, dtype, args in cases:
+        wrapper, plain = KERNELS[name][:2]
+        got, want = wrapper(*args), plain(*args)
+        torch.cuda.synchronize()
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        tol = TOL[dtype]
+        err = 0.0
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+            err = max(err, (g.float() - w.float()).abs().max().item())
+        worst[name] = max(worst[name], err)
+        tensors = [a for a in args if torch.is_tensor(a)]
+        emit("parity", kernel=name, dtypes=[str(a.dtype) for a in tensors],
+             shapes=[list(a.shape) for a in tensors],
+             max_abs_err=err, tol=tol)
+    return worst
+
+
+# ---------------------------------------------------------------- phase 4
+
+def cpu_vs_device(device: str = "cuda", seed: int = 0) -> dict:
+    """The same seeded TINY_CONFIG pipeline and 1 s clip rendered on the CPU
+    and on ``device``; raises unless per-frame mean |difference| has
+    max < 1e-2 and mean < 3e-3."""
+    opts = dict(frame_chunk=8, time_bucket=8)
+    cpu = EammPipeline.from_random(TINY_CONFIG, seed,
+                                   PipelineOptions(device="cpu", **opts))
+    dev = EammPipeline.from_random(TINY_CONFIG, seed,
+                                   PipelineOptions(device=device, **opts))
+    src, wav, pose = clip_inputs(1.0, seed)
+    a = cpu.render(src, wav, pose)
+    b = dev.render(src, wav, pose)
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes differ: {a.shape} vs {b.shape}")
+    l1 = np.abs(a - b).mean(axis=(1, 2, 3))
+    result = {"frames": int(a.shape[0]), "l1_max": float(l1.max()),
+              "l1_mean": float(l1.mean())}
+    if not (l1.max() < 1e-2 and l1.mean() < 3e-3):
+        raise AssertionError(f"CPU vs {device} render differs: {result}")
+    return result
+
+
+# ---------------------------------------------------------------- phase 5
+
+def main_path() -> dict:
+    opts = PipelineOptions(frame_chunk=32, time_bucket=32,
+                           compute_dtype=torch.bfloat16, device="cuda")
+    t0 = time.perf_counter()
+    pipe = EammPipeline.from_random(FULL_CONFIG, 0, opts)
+    torch.cuda.synchronize()
+    emit("main_path_setup", seconds=time.perf_counter() - t0)
+    pipe.render_uint8(*clip_inputs(1.0, 100))          # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    for i, seconds in enumerate(REQUEST_SECONDS):
+        src, wav, pose = clip_inputs(seconds, i + 1)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        frames = pipe.render_uint8(src, wav, pose)     # ends on the host
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        emit("request", clip_seconds=seconds, frames=int(frames.shape[0]),
+             wall_seconds=wall, fps=frames.shape[0] / wall, launches=launches)
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"a kernel was not launched: {launches}")
+        if frames.dtype != np.uint8 or frames.shape[1:] != (256, 256, 3) \
+                or frames.shape[0] < 20 * seconds or frames.std() == 0:
+            raise AssertionError(f"bad frames {frames.shape} {frames.dtype} "
+                                 f"std {frames.std()}")
+    peak = torch.cuda.max_memory_allocated()
+    f32 = EammPipeline(FULL_CONFIG, models=pipe.models, options=dataclasses
+                       .replace(opts, compute_dtype=torch.float32))
+    clip = clip_inputs(4.0, 2)
+    d = np.abs(pipe.render_uint8(*clip).astype(np.float32)
+               - f32.render_uint8(*clip).astype(np.float32))
+    quality = {"mean": float(d.mean()), "p99": float(np.percentile(d, 99)),
+               "max": float(d.max())}
+    emit("bf16_vs_f32", clip_seconds=4.0, uint8_diff=quality)
+    if not (quality["mean"] < 0.5 and quality["p99"] <= 2.0):
+        raise AssertionError(f"bf16 render strays from f32: {quality}")
+    emit("memory", max_memory_allocated=peak)
+    return launches
+
+
+# ---------------------------------------------------------------- phase 6
+
+def time_ms(fn, budget_s: float = 0.3) -> float:
+    """Mean ms per call over enough back-to-back calls to fill the budget,
+    by CUDA events, after warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    iters = int(min(500, max(5, budget_s / max(time.perf_counter() - t0,
+                                                  1e-6))))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timings() -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for name, C, B in (("warp_wide", 256, 32), ("warp_narrow", 3, 352)):
+        image, grid = warp_case(1, B, (64, 64), C, torch.bfloat16, gen)
+        wrapper, plain = KERNELS[name][:2]
+        res = wrapper(image, grid)
+        nchw = image.permute(0, 3, 1, 2).expand(B, -1, -1, -1)
+        n_bytes = (image.numel() * image.element_size()
+                   + grid.numel() * grid.element_size()
+                   + res.numel() * res.element_size())
+        out[name] = {
+            "ms": time_ms(lambda: wrapper(image, grid)),
+            "plain_ms": time_ms(lambda: plain(image, grid)),
+            "library_ms": time_ms(lambda: F.grid_sample(
+                nchw, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=False)),
+            "bound": bound_ms(n_bytes, 8 * res.numel()),   # 4 FMA per value
+        }
+    pred, jmap, temp = kp_case(256, gen)
+    B, K, h, w = pred.shape
+    out["kp_expectation"] = {
+        "ms": time_ms(lambda: kpx.kp_expectation(pred, jmap, temp)),
+        "plain_ms": time_ms(lambda: kpx.kp_expectation_plain(pred, jmap, temp)),
+        "library_ms": None,
+        # 5 floats read per pixel, 6 written per row; ~16 operations per
+        # pixel (divide, exp, 7 multiply-adds)
+        "bound": bound_ms(B * K * (5 * h * w + 6) * 4, 16 * B * K * h * w),
+    }
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    card = card_line()
+    print(card, flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit("device", card=card, name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+
+    t0 = time.perf_counter()
+    builds = kernels.build()
+    emit("build", wall_seconds=time.perf_counter() - t0,
+         sources={b.name: {"seconds": b.seconds,
+                           "ptxas": [line.strip() for line in
+                                     b.ptxas.splitlines() if "ptxas" in line]}
+                  for b in builds})
+
+    worst = parity()
+    emit("cpu_vs_card", **cpu_vs_device("cuda"))
+    launches = main_path()
+    times = timings()
+
+    rows = []
+    for name, (_, _, source, replaces) in KERNELS.items():
+        t = times[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": worst[name], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                     "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

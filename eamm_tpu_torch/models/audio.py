@@ -1,0 +1,73 @@
+"""Audio-to-facial-dynamics network (ATNet, ``jaco_net='cnn'``), NCHW.
+
+Counterpart of ``eamm_tpu/models/audio.py``: identity image, MFCC windows
+and head pose -> one 35-channel 64x64 map per video frame, which the audio
+keypoint detector reads.  The per-window encoders and the decoder fold the
+time axis into the batch; the recurrent part is a 3-layer ``nn.LSTM``
+(torch gate order i, f, g, o; zero initial state).  Submodule names are the
+reference checkpoint's (``down_blocks``, ``audio_eocder``,
+``audio_eocder_fc``, ``pose_encoder``, ``lstm``, ``decon``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from eamm_tpu_torch.models.blocks import ConvBlock, DownBlock
+
+
+def _decoder() -> nn.Sequential:
+    """[N, 256, 1, 1] -> [N, 35, 64, 64] by five transposed convs, each but
+    the last followed by BN and ReLU (sizes 4, 8, 16, 32, 64)."""
+    layers = []
+    specs = [(256, 256, 6), (256, 128, 4), (128, 128, 4), (128, 128, 4),
+             (128, 35, 4)]
+    for i, (cin, cout, k) in enumerate(specs):
+        layers.append(nn.ConvTranspose2d(cin, cout, k, 2, 1))
+        if i < len(specs) - 1:
+            layers += [nn.BatchNorm2d(cout), nn.ReLU()]
+    return nn.Sequential(*layers)
+
+
+class ATNet(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.down_blocks = nn.ModuleList(
+            DownBlock(3 if i == 0 else 2 ** (i + 1), 2 ** (i + 2))
+            for i in range(8))                            # 256^2 -> 512 x 1^2
+        self.pose_encoder = nn.Sequential(
+            nn.Linear(6, 128), nn.ReLU(), nn.Linear(128, 256), nn.ReLU())
+        self.audio_eocder = nn.Sequential(
+            ConvBlock(1, 64), ConvBlock(64, 128),
+            nn.MaxPool2d(3, stride=(1, 2)),
+            ConvBlock(128, 256), ConvBlock(256, 256), ConvBlock(256, 512),
+            nn.MaxPool2d(3, stride=(2, 2)))               # 28x12 -> 512x12x2
+        self.audio_eocder_fc = nn.Sequential(
+            nn.Linear(512 * 12 * 2, 2048), nn.ReLU(),
+            nn.Linear(2048, 256), nn.ReLU())
+        self.lstm = nn.LSTM(1024, 256, 3, batch_first=True)
+        self.decon = _decoder()
+
+    def encode_image(self, example_image: torch.Tensor) -> torch.Tensor:
+        """[B, 3, 256, 256] -> identity feature [B, 512]."""
+        out = example_image
+        for block in self.down_blocks:
+            out = block(out)
+        return out.flatten(1)
+
+    def forward(self, example_image: torch.Tensor, audio: torch.Tensor,
+                pose: torch.Tensor, audio_weight: float = 1.0
+                ) -> torch.Tensor:
+        """example_image [B,3,256,256], audio [B,T,28,12], pose [B,T,6] ->
+        [B, T, 35, 64, 64]."""
+        B, T = audio.shape[:2]
+        image_feature = self.encode_image(example_image)
+        audio_feature = self.audio_eocder_fc(
+            self.audio_eocder(audio.reshape(B * T, 1, *audio.shape[2:]))
+            .flatten(1)).view(B, T, -1) * audio_weight
+        pose_feature = self.pose_encoder(pose.reshape(B * T, -1)).view(B, T, -1)
+        lstm_in = torch.cat([image_feature[:, None].expand(B, T, -1),
+                             audio_feature, pose_feature], dim=-1)
+        lstm_out, _ = self.lstm(lstm_in)                  # [B, T, 256]
+        deco = self.decon(lstm_out.reshape(B * T, -1, 1, 1))
+        return deco.view(B, T, *deco.shape[1:])

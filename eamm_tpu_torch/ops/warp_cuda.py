@@ -1,0 +1,94 @@
+"""The two bilinear warps of the render path, as CUDA kernels for Hopper.
+
+``grid_sample_wide`` replaces ``eamm_tpu/ops/warp_pallas.py::
+grid_sample_twolevel_pallas`` (the generator's bottleneck warp) and
+``grid_sample_narrow`` replaces ``grid_sample_smallc_pallas`` (dense
+motion's deformed copies of the downsampled source).  Both compute
+``ops.warp.grid_sample`` with zeros padding: image [Bi, H, W, C] NHWC,
+grid [B, Ho, Wo, 2], each float32 or bfloat16, grid b samples image
+b // (B // Bi), float32 arithmetic rounded once to the image dtype.  The kernels are in
+``csrc/warp.cu``.
+
+A CPU tensor takes the plain version (``ops.warp.grid_sample``); a CUDA
+tensor launches the kernel or raises.  Each wrapper counts its launches in
+its ``launches`` attribute.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from eamm_tpu_torch import kernels
+from eamm_tpu_torch.ops.warp import check_shared_batch, grid_sample
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def grid_sample_plain(image: torch.Tensor, grid: torch.Tensor,
+                      align_corners: bool = False) -> torch.Tensor:
+    """The plain version of both kernels."""
+    return grid_sample(image, grid, padding_mode="zeros",
+                       align_corners=align_corners)
+
+
+def _launch(entry: str, image: torch.Tensor, grid: torch.Tensor,
+            align_corners: bool) -> torch.Tensor:
+    group = check_shared_batch(image, grid)
+    if image.device.type != "cuda":
+        raise ValueError(f"{entry}: tensors on {image.device}; the kernel "
+                         "runs on CUDA and the plain version on the CPU")
+    if image.dtype not in _DTYPES or grid.dtype not in _DTYPES:
+        raise TypeError(f"{entry}: image {image.dtype}, grid {grid.dtype}; "
+                        "each must be float32 or bfloat16")
+    if not image.is_contiguous():
+        raise ValueError(f"{entry}: image must be contiguous NHWC")
+    Bi, H, W, C = image.shape
+    B, Ho, Wo, _ = grid.shape
+    g = grid.contiguous()
+    out = torch.empty((B, Ho, Wo, C), dtype=image.dtype, device=image.device)
+    if out.numel() == 0:
+        raise ValueError(f"{entry}: empty output {tuple(out.shape)}")
+    if image.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError(f"{entry}: image and output need 16-byte alignment")
+    lib = kernels.library("warp")
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    code = fn(image.data_ptr(), g.data_ptr(), out.data_ptr(),
+              _DTYPES[image.dtype], _DTYPES[g.dtype], B, Ho * Wo, group, H, W, C,
+              int(align_corners), torch.cuda.current_stream(image.device).cuda_stream)
+    kernels.check(lib, code, entry)
+    return out
+
+
+def grid_sample_wide(image: torch.Tensor, grid: torch.Tensor,
+                     align_corners: bool = False) -> torch.Tensor:
+    """Warp for channel counts that are a multiple of 8 (the bottleneck's
+    256): one thread per output pixel and 8 channels."""
+    if image.device.type == "cpu":
+        return grid_sample_plain(image, grid, align_corners)
+    if image.dim() != 4 or image.shape[-1] % 8:
+        raise ValueError(f"grid_sample_wide: need [Bi,H,W,C] with C % 8 == 0, "
+                         f"got {tuple(image.shape)}")
+    out = _launch("eamm_warp_wide", image, grid, align_corners)
+    grid_sample_wide.launches += 1
+    return out
+
+
+def grid_sample_narrow(image: torch.Tensor, grid: torch.Tensor,
+                       align_corners: bool = False) -> torch.Tensor:
+    """Warp for 1 to 8 channels (dense motion's RGB source): one thread per
+    output pixel."""
+    if image.device.type == "cpu":
+        return grid_sample_plain(image, grid, align_corners)
+    if image.dim() != 4 or not 1 <= image.shape[-1] <= 8:
+        raise ValueError(f"grid_sample_narrow: need [Bi,H,W,C] with "
+                         f"1 <= C <= 8, got {tuple(image.shape)}")
+    out = _launch("eamm_warp_narrow", image, grid, align_corners)
+    grid_sample_narrow.launches += 1
+    return out
+
+
+grid_sample_wide.launches = 0
+grid_sample_narrow.launches = 0

@@ -1,0 +1,138 @@
+"""The plain versions of the port's CUDA kernels against the TPU kernels they
+replace, run as the JAX package's own tests run them on the CPU (Pallas
+interpret mode, exact f32 products), at atol 1e-5.
+
+The CUDA kernels themselves run only on the card; chip_smoke.py holds them
+to these plain versions there.  Here the wrappers must take the plain
+version for CPU tensors and reject what the kernels do not take."""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import eamm_tpu.ops.kp_expectation as jax_kpx
+from eamm_tpu.ops import warp_pallas
+from eamm_tpu_torch.ops import kp_expectation as kpx
+from eamm_tpu_torch.ops import warp_cuda
+
+ATOL = 1e-5
+
+
+def _interpret(fn, *args, **kw):
+    from jax.experimental.pallas import tpu as pltpu
+    with pltpu.force_tpu_interpret_mode():
+        return np.asarray(fn(*args, **kw))
+
+
+# (image shape, grid shape, tile): a shared source, Bi=2 grouping, and a
+# pixel count (5*7=35) that is not a multiple of the TPU tile
+WIDE_CASES = [((1, 8, 8, 128), (4, 8, 8, 2), 32),
+              ((2, 8, 8, 128), (4, 8, 8, 2), 32),
+              ((1, 16, 8, 128), (3, 5, 7, 2), 32)]
+NARROW_CASES = [((1, 16, 8, 3), (6, 5, 7, 2), 32),
+                ((2, 8, 8, 3), (6, 4, 4, 2), 16)]
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("case", range(len(WIDE_CASES)))
+def test_wide_warp_plain_matches_twolevel_pallas(case, align_corners):
+    img_shape, grid_shape, tile = WIDE_CASES[case]
+    rng = np.random.RandomState(case)
+    img = rng.randn(*img_shape).astype(np.float32)
+    g = rng.uniform(-1.2, 1.2, grid_shape).astype(np.float32)
+    ref = _interpret(warp_pallas.grid_sample_twolevel_pallas,
+                     jnp.asarray(img), jnp.asarray(g),
+                     align_corners=align_corners, tile=tile, exact=True)
+    ours = warp_cuda.grid_sample_wide(torch.from_numpy(img),
+                                      torch.from_numpy(g), align_corners)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("case", range(len(NARROW_CASES)))
+def test_narrow_warp_plain_matches_smallc_pallas(case, align_corners):
+    img_shape, grid_shape, tile = NARROW_CASES[case]
+    rng = np.random.RandomState(10 + case)
+    img = rng.randn(*img_shape).astype(np.float32)
+    g = rng.uniform(-1.2, 1.2, grid_shape).astype(np.float32)
+    ref = _interpret(warp_pallas.grid_sample_smallc_pallas,
+                     jnp.asarray(img), jnp.asarray(g),
+                     align_corners=align_corners, tile=tile, exact=True)
+    ours = warp_cuda.grid_sample_narrow(torch.from_numpy(img),
+                                        torch.from_numpy(g), align_corners)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=ATOL)
+
+
+def test_warp_grouping_reads_the_right_source():
+    """Grid b reads source b // (B // Bi): swapping the sources changes
+    the result, so a wrong index cannot pass."""
+    rng = np.random.RandomState(20)
+    img = torch.from_numpy(rng.randn(2, 8, 8, 3).astype(np.float32))
+    g = torch.from_numpy(rng.uniform(-1, 1, (4, 4, 4, 2)).astype(np.float32))
+    out = warp_cuda.grid_sample_narrow(img, g)
+    rep = warp_cuda.grid_sample_narrow(img.repeat_interleave(2, 0), g)
+    torch.testing.assert_close(out, rep, rtol=0, atol=0)
+    swapped = warp_cuda.grid_sample_narrow(img.flip(0), g)
+    assert (out - swapped).abs().max() > 1e-3
+
+
+def test_warp_wrappers_reject_what_the_kernels_do_not_take():
+    img, g = torch.zeros(1, 8, 8, 12), torch.zeros(2, 4, 4, 2)
+    with pytest.raises(ValueError):
+        warp_cuda.grid_sample_wide(torch.zeros(1, 8, 8, 12, device="meta"),
+                                   g.to("meta"))       # C % 8 != 0
+    with pytest.raises(ValueError):
+        warp_cuda.grid_sample_narrow(img.to("meta"), g.to("meta"))   # C > 8
+    with pytest.raises(ValueError):
+        warp_cuda.grid_sample_narrow(torch.zeros(2, 8, 8, 3),
+                                     torch.zeros(3, 4, 4, 2))
+    with pytest.raises(ValueError):      # neither CPU nor CUDA
+        warp_cuda.grid_sample_narrow(torch.zeros(1, 8, 8, 3, device="meta"),
+                                     g.to("meta"))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 10, 58, 58)])
+def test_kp_expectation_plain_matches_pallas(shape, monkeypatch):
+    monkeypatch.setattr(jax_kpx, "_INTERPRET", True)
+    rng = np.random.RandomState(0)
+    B, K, h, w = shape
+    pred = rng.randn(B, K, h, w).astype(np.float32)
+    jmap = rng.randn(B, K, 4, h, w).astype(np.float32)
+    ref_v, ref_j = jax_kpx.kp_expectation(jnp.asarray(pred), jnp.asarray(jmap),
+                                          0.1)
+    value, jac = kpx.kp_expectation(torch.from_numpy(pred),
+                                    torch.from_numpy(jmap), 0.1)
+    np.testing.assert_allclose(value.numpy(), np.asarray(ref_v), atol=ATOL,
+                               rtol=1e-5)
+    np.testing.assert_allclose(jac.numpy(), np.asarray(ref_j), atol=ATOL,
+                               rtol=1e-5)
+
+
+def test_kp_expectation_reads_conv_output_slices():
+    """The heads pass y[:, :K] and y[:, K:] of one [B, 5K, h, w] conv
+    output; the strided views give what the copies give."""
+    rng = np.random.RandomState(1)
+    y = torch.from_numpy(rng.randn(3, 50, 9, 11).astype(np.float32))
+    views = kpx.kp_expectation(y[:, :10], y[:, 10:].view(3, 10, 4, 9, 11), 0.1)
+    copies = kpx.kp_expectation(y[:, :10].clone(),
+                                y[:, 10:].reshape(3, 10, 4, 9, 11).clone(), 0.1)
+    for a, b in zip(views, copies):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        kpx.kp_expectation(y[:, :10], y[:, 10:30].view(3, 10, 2, 9, 11), 0.1)
+    with pytest.raises(ValueError):      # neither CPU nor CUDA
+        kpx.kp_expectation(y[:, :10].to("meta"),
+                           y[:, 10:].reshape(3, 10, 4, 9, 11).to("meta"), 0.1)
+
+
+def test_launch_counters_untouched_on_cpu():
+    before = (warp_cuda.grid_sample_wide.launches,
+              warp_cuda.grid_sample_narrow.launches,
+              kpx.kp_expectation.launches)
+    warp_cuda.grid_sample_wide(torch.zeros(1, 4, 4, 8), torch.zeros(1, 2, 2, 2))
+    warp_cuda.grid_sample_narrow(torch.zeros(1, 4, 4, 3),
+                                 torch.zeros(1, 2, 2, 2))
+    kpx.kp_expectation(torch.zeros(1, 2, 3, 3), torch.zeros(1, 2, 4, 3, 3), 0.1)
+    assert (warp_cuda.grid_sample_wide.launches,
+            warp_cuda.grid_sample_narrow.launches,
+            kpx.kp_expectation.launches) == before
