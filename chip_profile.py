@@ -5,19 +5,22 @@ Run from the repository root with no arguments: ``python3 chip_profile.py``.
 It builds the same pipeline as ``chip_smoke.py``'s main path (FULL_CONFIG,
 random weights from seed 0, bfloat16 generator, frame_chunk 32,
 time_bucket 32, TF32 off), warms it up on a 1 s clip, and then, for a
-10 s clip:
+10 s clip rendered neutral and emotional (``linear_3``, through a
+``prepare_emotion`` handle of chip_smoke's seeded 50-frame emotion clip,
+so the render runs the emotion heads per timestep but not the trunk):
 
 1. ``stages``: host-clock seconds of the pipeline's stages, each ended by
    ``torch.cuda.synchronize()``: host preparation and upload, MFCC,
-   ``clip_keypoints``, ``decode_clip`` and the copy to the host; three
-   repetitions.
+   ``clip_keypoints`` (with the emotion stage, when emotional),
+   ``decode_clip`` and the copy to the host; three repetitions; and, once,
+   the seconds of ``prepare_emotion``.
 2. ``profile``: one ``render_uint8`` call under ``torch.profiler`` (CPU and
    CUDA activity): the wall seconds, the summed device time of all
    kernels and copies, the operators whose own launches took the most
    device time (self time, so nested operators are not counted twice), and
    the kernels that took the most.
 
-Each prints one JSON line.  Without a CUDA device it exits non-zero before
+Each prints one JSON line, naming its render.  Without a CUDA device it exits non-zero before
 printing any result.
 """
 from __future__ import annotations
@@ -28,39 +31,43 @@ import time
 
 import torch
 
-from chip_smoke import FULL_CONFIG, card_line, clip_inputs
+from chip_smoke import (EMOTION_FRAMES, FULL_CONFIG, card_line, clip_inputs,
+                        emotion_clip)
 from eamm_tpu_torch.infer import EammPipeline, PipelineOptions
 from eamm_tpu_torch.ops.mfcc import audio_to_mfcc_windows
 
 TOP = 25
 
 
-def stages(pipe: EammPipeline, clip) -> dict:
-    def timed(fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
+
+def stages(pipe: EammPipeline, clip, handle=None) -> dict:
     with torch.no_grad():
         (T, source, wav, pose), t_prep = timed(lambda: pipe._prepare(*clip))
-        windows, t_mfcc = timed(
-            lambda: audio_to_mfcc_windows(wav)[:pose.shape[0]])
+        Tp = pose.shape[0]
+        emotion = (None if handle is None
+                   else pipe._emotion_input(handle, Tp))
+        windows, t_mfcc = timed(lambda: audio_to_mfcc_windows(wav)[:Tp])
         (kp_norm, kp_s), t_kp = timed(
-            lambda: pipe.clip_keypoints(source, windows, pose))
+            lambda: pipe.clip_keypoints(source, windows, pose, emotion))
         frames, t_dec = timed(lambda: pipe.decode_clip(source, kp_norm, kp_s))
         _, t_host = timed(lambda: frames[:T].cpu().numpy())
     return {"frames": T, "prepare_s": t_prep, "mfcc_s": t_mfcc,
             "keypoints_s": t_kp, "decode_s": t_dec, "to_host_s": t_host}
 
 
-def profile(pipe: EammPipeline, clip) -> dict:
+def profile(pipe: EammPipeline, clip, handle=None) -> dict:
     from torch.profiler import ProfilerActivity, profile as torch_profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch_profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        pipe.render_uint8(*clip)
+        pipe.render_uint8(*clip, handle, add_emo=handle is not None)
         wall = time.perf_counter() - t0
 
     def self_us(evt):
@@ -90,12 +97,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     pipe = EammPipeline.from_random(FULL_CONFIG, 0, PipelineOptions(
         frame_chunk=32, time_bucket=32, compute_dtype=torch.bfloat16))
-    pipe.render_uint8(*clip_inputs(1.0, 100))              # warm-up
+    video = emotion_clip(EMOTION_FRAMES, 7)
+    warm = clip_inputs(1.0, 100)
+    pipe.render_uint8(*warm, add_emo=False)                 # warm-ups
+    pipe.render_uint8(*warm, pipe.prepare_emotion(video))
+    handle, t_handle = timed(lambda: pipe.prepare_emotion(video))
+    print(json.dumps({"phase": "prepare_emotion", "frames": EMOTION_FRAMES,
+                      "seconds": t_handle}), flush=True)
     clip = clip_inputs(10.0, 3)
-    for rep in range(3):
-        print(json.dumps({"phase": "stages", "rep": rep,
-                          **stages(pipe, clip)}), flush=True)
-    print(json.dumps({"phase": "profile", **profile(pipe, clip)}), flush=True)
+    for render, h in (("neutral", None), ("emotional handle", handle)):
+        for rep in range(3):
+            print(json.dumps({"phase": "stages", "render": render, "rep": rep,
+                              **stages(pipe, clip, h)}), flush=True)
+        print(json.dumps({"phase": "profile", "render": render,
+                          **profile(pipe, clip, h)}), flush=True)
     print(card_line(), flush=True)
     return 0
 

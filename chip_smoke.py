@@ -17,25 +17,43 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    card at the main path's shapes, plus a second source (Bi=2) and a pixel
    count that is not a multiple of the block; grids from U(-1.2, 1.2) put
    corners outside the image.  Warp grids come in the image dtype, as on
-   the main path, plus one case each in the other dtype.  float32 within
-   1e-5 (abs and rel); bfloat16 within 1e-2 (abs and rel: one output
-   rounding on unit-scale data).
+   the main path, plus one case each in the other dtype.  The shared warp
+   at [64,64,256] by [32,64,64,2] in both dtypes and both align_corners,
+   and at C = 3 and 35; the fused keypoint expectation at [256,10,58,58]
+   with and without the heatmap, in bfloat16, and at a ragged [3,2,13,17].
+   float32 within 1e-5 (abs and rel); bfloat16 within 1e-2 (abs and rel:
+   one output rounding on unit-scale data).
 4. CPU vs card: the same seeded weights and clip rendered by the port on
-   the CPU (plain versions) and on the card (kernels) at TINY_CONFIG
-   widths in float32; per-frame mean |difference| max < 1e-2, mean < 3e-3.
-5. main path: one pipeline at FULL_CONFIG, bfloat16 generator,
-   frame_chunk 32, time_bucket 32, serving 1 s, 4 s and 10 s requests; per
-   request the frames, wall seconds and fps, and each kernel's launches
-   (counts zeroed just before the request, read just after; each must be
-   > 0).  The 4 s clip again in float32: bfloat16 within mean 0.5 and
-   99th percentile 2 uint8 counts of it.  Peak device memory.
+   the CPU (plain versions) and on the card (kernels) in float32, neutral
+   at TINY_CONFIG widths and emotional (5 emotion frames) at
+   EMOTION_TINY_CONFIG; per-frame mean |difference| max < 1e-2, mean
+   < 3e-3.
+5. main paths, each at FULL_CONFIG (the emotion model at the reference's
+   hard-coded widths), bfloat16, frame_chunk 32, time_bucket 32, after one
+   warm-up request per route; per request the frames, wall seconds, fps and each
+   kernel's launches (counts zeroed just before the request, read just
+   after; each kernel the path runs must have launched):
+   - neutral (``add_emo=False``): 1 s, 4 s and 10 s; the 4 s clip again
+     in float32, bfloat16 within mean 0.5 and p99 2 uint8 counts of it;
+   - emotional (``linear_3``, a seeded 50-frame emotion clip): 1 s (Tp 32
+     <= 50: the whole model per frame in float32), 4 s and 10 s (the trunk
+     per unique frame in bfloat16), passing the frames; the same three
+     through one ``prepare_emotion`` handle, within 1 count of the frames
+     where both take the trunk route (4 s, 10 s) and within the bfloat16
+     bound where they do not (1 s); one 4 s request with the map head,
+     whose keypoints launch the keypoint expectation once more; the 4 s
+     clip in float32, bfloat16 within mean 0.75 and p99 3 counts of it;
+   - entry points: the shared warp and the fused keypoint expectation,
+     which no model calls, once each at the shapes of phase 6.
+   Peak device memory of each path.
 6. kernel times: CUDA events over many launches after warm-up at the
    main-path shapes: the kernel, its plain version, one PyTorch library
    call computing the same function where there is one, and the bound
    (the larger of bytes at 3.35 TB/s and operations at 67 TFLOP/s f32).
 
-Then the card's name and power limit, the ``{"kernels": [...]}`` line, and
-last ``{"ok": true, "device": {...}}``.
+Then the card's name and power limit, the ``{"kernels": [...]}`` line
+(with the path whose launches each row counts), and last
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -49,8 +67,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from eamm_tpu_torch import config as cfg
 from eamm_tpu_torch import kernels
 from eamm_tpu_torch.infer import EammPipeline, PipelineOptions
+from eamm_tpu_torch.infer.pipeline import reset_parameters
 from eamm_tpu_torch.ops import kp_expectation as kpx
 from eamm_tpu_torch.ops import warp_cuda
 
@@ -100,10 +120,20 @@ TINY_CONFIG = {
     "train_params": {"jaco_net": "cnn"},
 }
 
+# TINY_CONFIG with a narrow emotion hourglass (the emotion model ignores
+# the other widths: the reference hard-codes 32 / 1024 / 5)
+EMOTION_TINY_CONFIG = {
+    **TINY_CONFIG,
+    "model_params": {**TINY_CONFIG["model_params"],
+                     "emotion_params": {"block_expansion": 8,
+                                        "max_features": 32, "num_blocks": 3}},
+}
+
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 REQUEST_SECONDS = (1.0, 4.0, 10.0)
+EMOTION_FRAMES = 50
 
 # name -> (wrapper, plain version, source, TPU kernel it replaces)
 KERNELS = {
@@ -116,7 +146,16 @@ KERNELS = {
     "kp_expectation": (kpx.kp_expectation, kpx.kp_expectation_plain,
                        "eamm_tpu_torch/csrc/kp_expectation.cu",
                        "eamm_tpu/ops/kp_expectation.py:110"),
+    "warp_shared": (warp_cuda.grid_sample_shared,
+                    warp_cuda.grid_sample_shared_plain,
+                    "eamm_tpu_torch/csrc/warp.cu",
+                    "eamm_tpu/ops/warp_pallas.py:64"),
+    "kp_expectation_fused": (kpx.kp_expectation_fused,
+                             kpx.kp_expectation_fused_plain,
+                             "eamm_tpu_torch/csrc/kp_expectation.cu",
+                             "eamm_tpu/ops/kp_pallas.py:79"),
 }
+RENDER_KERNELS = ("warp_wide", "warp_narrow", "kp_expectation")
 
 
 def emit(phase: str, **fields) -> None:
@@ -147,6 +186,25 @@ def clip_inputs(seconds: float, seed: int):
     return src, wav, pose
 
 
+def emotion_clip(frames: int, seed: int) -> np.ndarray:
+    """Seeded float32 emotion frames [frames, 256, 256, 3] in [0, 1]."""
+    return np.random.RandomState(seed).rand(frames, 256, 256, 3).astype(
+        np.float32)
+
+
+def check_frames(frames: np.ndarray, seconds: float) -> None:
+    if frames.dtype != np.uint8 or frames.shape[1:] != (256, 256, 3) \
+            or frames.shape[0] < 20 * seconds or frames.std() == 0:
+        raise AssertionError(f"bad frames {frames.shape} {frames.dtype} "
+                             f"std {frames.std()}")
+
+
+def uint8_diff(a: np.ndarray, b: np.ndarray) -> dict:
+    d = np.abs(a.astype(np.float32) - b.astype(np.float32))
+    return {"mean": float(d.mean()), "p99": float(np.percentile(d, 99)),
+            "max": float(d.max())}
+
+
 # ---------------------------------------------------------------- phase 3
 
 def warp_case(Bi: int, B: int, hw: tuple[int, int], C: int,
@@ -160,70 +218,92 @@ def warp_case(Bi: int, B: int, hw: tuple[int, int], C: int,
     return (image, grid.to(grid_dtype or dtype))
 
 
-def kp_case(B: int, gen: torch.Generator, h: int = 58, w: int = 58):
+def kp_case(B: int, gen: torch.Generator, h: int = 58, w: int = 58,
+            K: int = 10, dtype: torch.dtype = torch.float32):
     """pred and jmap as the heads pass them: slices of one conv output."""
-    y = torch.randn((B, 50, h, w), generator=gen, device="cuda")
-    return (y[:, :10], y[:, 10:].view(B, 10, 4, h, w), 0.1)
+    y = torch.randn((B, 5 * K, h, w), generator=gen, device="cuda").to(dtype)
+    return (y[:, :K], y[:, K:].view(B, K, 4, h, w), 0.1)
 
 
 def parity() -> dict:
     """Every kernel against its plain version; returns the largest |error|
     per kernel."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = []
+    cases = []                                     # (name, dtype, args, kw)
     for dtype in (torch.float32, torch.bfloat16):
         for Bi, B, hw in ((1, 32, (64, 64)), (2, 32, (64, 64)), (1, 3, (5, 7))):
             cases.append(("warp_wide", dtype,
-                          warp_case(Bi, B, hw, 256, dtype, gen)))
+                          warp_case(Bi, B, hw, 256, dtype, gen), {}))
         for Bi, B, hw in ((1, 352, (64, 64)), (2, 352, (64, 64)),
                           (1, 3, (5, 7))):
             cases.append(("warp_narrow", dtype,
-                          warp_case(Bi, B, hw, 3, dtype, gen)))
+                          warp_case(Bi, B, hw, 3, dtype, gen), {}))
         other = torch.bfloat16 if dtype == torch.float32 else torch.float32
         for name, C in (("warp_wide", 256), ("warp_narrow", 3)):
             cases.append((name, dtype, warp_case(1, 4, (64, 64), C, dtype, gen,
-                                                 grid_dtype=other)))
+                                                 grid_dtype=other), {}))
+        for align in (False, True):
+            image, grid = warp_case(1, 32, (64, 64), 256, dtype, gen)
+            cases.append(("warp_shared", dtype, (image[0], grid),
+                          {"align_corners": align}))
+        for C in (3, 35):
+            image, grid = warp_case(1, 3, (5, 7), C, dtype, gen)
+            cases.append(("warp_shared", dtype, (image[0], grid), {}))
     for B, hw in ((256, (58, 58)), (1, (58, 58)), (3, (13, 17))):
-        cases.append(("kp_expectation", torch.float32, kp_case(B, gen, *hw)))
+        cases.append(("kp_expectation", torch.float32, kp_case(B, gen, *hw), {}))
+    for heat in (True, False):
+        cases.append(("kp_expectation_fused", torch.float32, kp_case(256, gen),
+                      {"want_heatmap": heat}))
+    cases.append(("kp_expectation_fused", torch.bfloat16,
+                  kp_case(256, gen, dtype=torch.bfloat16),
+                  {"want_heatmap": True}))
+    cases.append(("kp_expectation_fused", torch.float32,
+                  kp_case(3, gen, 13, 17, K=2), {"want_heatmap": True}))
     worst = {name: 0.0 for name in KERNELS}
-    for name, dtype, args in cases:
+    for name, dtype, args, kw in cases:
         wrapper, plain = KERNELS[name][:2]
-        got, want = wrapper(*args), plain(*args)
+        got, want = wrapper(*args, **kw), plain(*args, **kw)
         torch.cuda.synchronize()
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
         tol = TOL[dtype]
         err = 0.0
         for g, w in zip(got, want):
+            if g is None and w is None:
+                continue
             torch.testing.assert_close(g, w, rtol=tol, atol=tol)
             err = max(err, (g.float() - w.float()).abs().max().item())
         worst[name] = max(worst[name], err)
         tensors = [a for a in args if torch.is_tensor(a)]
         emit("parity", kernel=name, dtypes=[str(a.dtype) for a in tensors],
-             shapes=[list(a.shape) for a in tensors],
+             shapes=[list(a.shape) for a in tensors], options=kw,
              max_abs_err=err, tol=tol)
     return worst
 
 
 # ---------------------------------------------------------------- phase 4
 
-def cpu_vs_device(device: str = "cuda", seed: int = 0) -> dict:
-    """The same seeded TINY_CONFIG pipeline and 1 s clip rendered on the CPU
-    and on ``device``; raises unless per-frame mean |difference| has
-    max < 1e-2 and mean < 3e-3."""
+def cpu_vs_device(device: str = "cuda", seed: int = 0,
+                  emotion: bool = False) -> dict:
+    """The same seeded pipeline and 1 s clip rendered on the CPU and on
+    ``device``, neutral at TINY_CONFIG or, with ``emotion``, emotional at
+    EMOTION_TINY_CONFIG with 5 emotion frames; raises unless per-frame
+    mean |difference| has max < 1e-2 and mean < 3e-3."""
+    config = EMOTION_TINY_CONFIG if emotion else TINY_CONFIG
     opts = dict(frame_chunk=8, time_bucket=8)
-    cpu = EammPipeline.from_random(TINY_CONFIG, seed,
+    cpu = EammPipeline.from_random(config, seed,
                                    PipelineOptions(device="cpu", **opts))
-    dev = EammPipeline.from_random(TINY_CONFIG, seed,
+    dev = EammPipeline.from_random(config, seed,
                                    PipelineOptions(device=device, **opts))
     src, wav, pose = clip_inputs(1.0, seed)
-    a = cpu.render(src, wav, pose)
-    b = dev.render(src, wav, pose)
+    video = emotion_clip(5, seed) if emotion else None
+    a = cpu.render(src, wav, pose, video, add_emo=emotion)
+    b = dev.render(src, wav, pose, video, add_emo=emotion)
     if a.shape != b.shape:
         raise AssertionError(f"shapes differ: {a.shape} vs {b.shape}")
     l1 = np.abs(a - b).mean(axis=(1, 2, 3))
-    result = {"frames": int(a.shape[0]), "l1_max": float(l1.max()),
-              "l1_mean": float(l1.mean())}
+    result = {"emotion": emotion, "frames": int(a.shape[0]),
+              "l1_max": float(l1.max()), "l1_mean": float(l1.mean())}
     if not (l1.max() < 1e-2 and l1.mean() < 3e-3):
         raise AssertionError(f"CPU vs {device} render differs: {result}")
     return result
@@ -231,44 +311,127 @@ def cpu_vs_device(device: str = "cuda", seed: int = 0) -> dict:
 
 # ---------------------------------------------------------------- phase 5
 
-def main_path() -> dict:
-    opts = PipelineOptions(frame_chunk=32, time_bucket=32,
-                           compute_dtype=torch.bfloat16, device="cuda")
+def drive(path: str, must: tuple, fn, seconds: float | None = None):
+    """Run ``fn`` with every launch count zeroed just before and read just
+    after; raise unless each kernel in ``must`` launched.  Returns (its
+    result, the counts)."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()                                 # a render ends on the host
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    fields = {"path": path, "wall_seconds": wall, "launches": launches}
+    if seconds is not None:
+        check_frames(out, seconds)
+        fields.update(clip_seconds=seconds, frames=int(out.shape[0]),
+                      fps=out.shape[0] / wall)
+    emit("request", **fields)
+    missing = [name for name in must if launches[name] <= 0]
+    if missing:
+        raise AssertionError(f"{path}: not launched: {missing} ({launches})")
+    return out, launches
+
+
+def main_path(opts: PipelineOptions) -> tuple[EammPipeline, dict]:
+    """The neutral render; returns the pipeline and the 10 s request's
+    launch counts."""
     t0 = time.perf_counter()
     pipe = EammPipeline.from_random(FULL_CONFIG, 0, opts)
     torch.cuda.synchronize()
     emit("main_path_setup", seconds=time.perf_counter() - t0)
-    pipe.render_uint8(*clip_inputs(1.0, 100))          # warm-up, not counted
+    pipe.render_uint8(*clip_inputs(1.0, 100), add_emo=False)   # warm-up
     torch.cuda.reset_peak_memory_stats()
     launches = {}
     for i, seconds in enumerate(REQUEST_SECONDS):
-        src, wav, pose = clip_inputs(seconds, i + 1)
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        frames = pipe.render_uint8(src, wav, pose)     # ends on the host
-        wall = time.perf_counter() - t0
-        launches = launch_counts()
-        emit("request", clip_seconds=seconds, frames=int(frames.shape[0]),
-             wall_seconds=wall, fps=frames.shape[0] / wall, launches=launches)
-        if min(launches.values()) <= 0:
-            raise AssertionError(f"a kernel was not launched: {launches}")
-        if frames.dtype != np.uint8 or frames.shape[1:] != (256, 256, 3) \
-                or frames.shape[0] < 20 * seconds or frames.std() == 0:
-            raise AssertionError(f"bad frames {frames.shape} {frames.dtype} "
-                                 f"std {frames.std()}")
+        clip = clip_inputs(seconds, i + 1)
+        _, launches = drive("neutral", RENDER_KERNELS, lambda: pipe.render_uint8(
+            *clip, add_emo=False), seconds)
     peak = torch.cuda.max_memory_allocated()
     f32 = EammPipeline(FULL_CONFIG, models=pipe.models, options=dataclasses
                        .replace(opts, compute_dtype=torch.float32))
     clip = clip_inputs(4.0, 2)
-    d = np.abs(pipe.render_uint8(*clip).astype(np.float32)
-               - f32.render_uint8(*clip).astype(np.float32))
-    quality = {"mean": float(d.mean()), "p99": float(np.percentile(d, 99)),
-               "max": float(d.max())}
-    emit("bf16_vs_f32", clip_seconds=4.0, uint8_diff=quality)
+    quality = uint8_diff(pipe.render_uint8(*clip, add_emo=False),
+                         f32.render_uint8(*clip, add_emo=False))
+    emit("bf16_vs_f32", path="neutral", clip_seconds=4.0, uint8_diff=quality)
     if not (quality["mean"] < 0.5 and quality["p99"] <= 2.0):
         raise AssertionError(f"bf16 render strays from f32: {quality}")
-    emit("memory", max_memory_allocated=peak)
+    emit("memory", path="neutral", max_memory_allocated=peak)
+    return pipe, launches
+
+
+def emotional_path(pipe: EammPipeline) -> dict:
+    """The emotional render with the neutral pipeline's four models;
+    returns the launch counts of the 10 s request with frames, of the
+    same with the handle and of the map head's 4 s request."""
+    video = emotion_clip(EMOTION_FRAMES, 7)
+    for seconds in (1.0, 4.0):          # warm-up of both routes, not counted
+        pipe.render_uint8(*clip_inputs(seconds, 100), video)
+    pipe.prepare_emotion(video)
+    torch.cuda.reset_peak_memory_stats()
+    by_frames, counts = {}, {}
+    for i, seconds in enumerate(REQUEST_SECONDS):
+        clip = clip_inputs(seconds, i + 1)
+        by_frames[seconds], counts["frames"] = drive(
+            "emotional linear_3 frames", RENDER_KERNELS,
+            lambda: pipe.render_uint8(*clip, video), seconds)
+    handle, _ = drive("prepare_emotion", (),
+                      lambda: pipe.prepare_emotion(video))
+    for i, seconds in enumerate(REQUEST_SECONDS):
+        clip = clip_inputs(seconds, i + 1)
+        out, counts["handle"] = drive(
+            "emotional linear_3 handle", RENDER_KERNELS,
+            lambda: pipe.render_uint8(*clip, handle), seconds)
+        diff = uint8_diff(out, by_frames[seconds])
+        # fewer emotion frames than timesteps: both run the trunk per
+        # unique frame in bfloat16; else the frames run the whole model
+        # per frame in float32
+        same_route = EMOTION_FRAMES < out.shape[0]
+        emit("handle_vs_frames", clip_seconds=seconds, same_route=same_route,
+             uint8_diff=diff)
+        if same_route and diff["max"] > 1.0:
+            raise AssertionError(f"handle strays from frames: {diff}")
+        if not same_route and not (diff["mean"] < 0.75 and diff["p99"] <= 3.0):
+            raise AssertionError(f"handle strays from frames: {diff}")
+    peak = torch.cuda.max_memory_allocated()
+
+    emo_map = cfg.build_emotion_detector(FULL_CONFIG, "map")
+    reset_parameters(emo_map, torch.Generator().manual_seed(0))
+    map_pipe = EammPipeline(
+        FULL_CONFIG, models={**pipe.models, "emo_detector": emo_map},
+        options=dataclasses.replace(pipe.options, emo_type="map"))
+    clip = clip_inputs(4.0, 2)
+    map_pipe.render_uint8(*clip_inputs(1.0, 100), video)        # warm-up
+    _, counts["map"] = drive("emotional map frames", RENDER_KERNELS,
+                             lambda: map_pipe.render_uint8(*clip, video), 4.0)
+    if counts["map"]["kp_expectation"] <= 2:
+        raise AssertionError(f"the map head did not launch the keypoint "
+                             f"expectation: {counts['map']}")
+
+    f32 = EammPipeline(FULL_CONFIG, models=pipe.models, options=dataclasses
+                       .replace(pipe.options, compute_dtype=torch.float32))
+    quality = uint8_diff(pipe.render_uint8(*clip, video),
+                         f32.render_uint8(*clip, video))
+    emit("bf16_vs_f32", path="emotional linear_3 frames", clip_seconds=4.0,
+         uint8_diff=quality)
+    if not (quality["mean"] < 0.75 and quality["p99"] <= 3.0):
+        raise AssertionError(f"bf16 emotional render strays from f32: "
+                             f"{quality}")
+    emit("memory", path="emotional", max_memory_allocated=peak)
+    return counts
+
+
+def entry_points() -> dict:
+    """The shared warp and the fused keypoint expectation through their
+    own entry points (no model calls them)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    image, grid = warp_case(1, 32, (64, 64), 256, torch.float32, gen)
+    pred, jmap, temp = kp_case(256, gen)
+    _, launches = drive("entry points", ("warp_shared", "kp_expectation_fused"),
+                        lambda: (warp_cuda.grid_sample_shared(image[0], grid),
+                                 kpx.kp_expectation_fused(pred, jmap, temp,
+                                                          True)))
     return launches
 
 
@@ -301,34 +464,49 @@ def bound_ms(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def timings() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
-    for name, C, B in (("warp_wide", 256, 32), ("warp_narrow", 3, 352)):
-        image, grid = warp_case(1, B, (64, 64), C, torch.bfloat16, gen)
+    for name, C, B, dtype in (("warp_wide", 256, 32, torch.bfloat16),
+                              ("warp_narrow", 3, 352, torch.bfloat16),
+                              ("warp_shared", 256, 32, torch.float32)):
+        image, grid = warp_case(1, B, (64, 64), C, dtype, gen)
+        args = (image[0], grid) if name == "warp_shared" else (image, grid)
         wrapper, plain = KERNELS[name][:2]
-        res = wrapper(image, grid)
+        res = wrapper(*args)
         nchw = image.permute(0, 3, 1, 2).expand(B, -1, -1, -1)
-        n_bytes = (image.numel() * image.element_size()
-                   + grid.numel() * grid.element_size()
-                   + res.numel() * res.element_size())
         out[name] = {
-            "ms": time_ms(lambda: wrapper(image, grid)),
-            "plain_ms": time_ms(lambda: plain(image, grid)),
+            "ms": time_ms(lambda: wrapper(*args)),
+            "plain_ms": time_ms(lambda: plain(*args)),
             "library_ms": time_ms(lambda: F.grid_sample(
                 nchw, grid, mode="bilinear", padding_mode="zeros",
                 align_corners=False)),
-            "bound": bound_ms(n_bytes, 8 * res.numel()),   # 4 FMA per value
+            "bound": bound_ms(nbytes(image, grid, res),
+                              8 * res.numel()),    # 4 FMA per value
         }
     pred, jmap, temp = kp_case(256, gen)
     B, K, h, w = pred.shape
+    # 5 floats read per pixel, 6 written per row; ~16 operations per
+    # pixel (divide, exp, 7 multiply-adds)
+    n_bytes, n_ops = B * K * (5 * h * w + 6) * 4, 16 * B * K * h * w
     out["kp_expectation"] = {
         "ms": time_ms(lambda: kpx.kp_expectation(pred, jmap, temp)),
         "plain_ms": time_ms(lambda: kpx.kp_expectation_plain(pred, jmap, temp)),
         "library_ms": None,
-        # 5 floats read per pixel, 6 written per row; ~16 operations per
-        # pixel (divide, exp, 7 multiply-adds)
-        "bound": bound_ms(B * K * (5 * h * w + 6) * 4, 16 * B * K * h * w),
+        "bound": bound_ms(n_bytes, n_ops),
+    }
+    # and the heatmap: one float written and one divide per pixel
+    out["kp_expectation_fused"] = {
+        "ms": time_ms(lambda: kpx.kp_expectation_fused(pred, jmap, temp,
+                                                       True)),
+        "plain_ms": time_ms(lambda: kpx.kp_expectation_fused_plain(
+            pred, jmap, temp, True)),
+        "library_ms": None,
+        "bound": bound_ms(n_bytes + 4 * B * K * h * w, n_ops + B * K * h * w),
     }
     return out
 
@@ -357,14 +535,27 @@ def main() -> int:
 
     worst = parity()
     emit("cpu_vs_card", **cpu_vs_device("cuda"))
-    launches = main_path()
+    emit("cpu_vs_card", **cpu_vs_device("cuda", emotion=True))
+    opts = PipelineOptions(frame_chunk=32, time_bucket=32,
+                           compute_dtype=torch.bfloat16, device="cuda")
+    pipe, _ = main_path(opts)
+    counts = emotional_path(pipe)
+    entry = entry_points()
     times = timings()
 
+    # whose launches each row counts
+    source_of = {name: ("emotional linear_3 frames 10 s", counts["frames"])
+                 for name in RENDER_KERNELS}
+    source_of["kp_expectation"] = ("emotional map frames 4 s", counts["map"])
+    for name in ("warp_shared", "kp_expectation_fused"):
+        source_of[name] = ("entry points", entry)
     rows = []
     for name, (_, _, source, replaces) in KERNELS.items():
         t = times[name]
+        path, launches = source_of[name]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "path": path,
+                     "launches": launches[name],
                      "max_abs_err": worst[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1], "library_ms": t["library_ms"]})

@@ -1,11 +1,11 @@
 """Model factories from the JAX package's config dict schema
-(``model_params.{common,audio,kp_detector,generator}_params``,
+(``model_params.{common,audio,kp_detector,generator,emotion}_params``,
 ``train_params.jaco_net``); see ``eamm_tpu/config.py``.  The dict is
 passed in: this module reads no files."""
 from __future__ import annotations
 
-from eamm_tpu_torch.models import (ATNet, KPDetector, KPDetectorA,
-                                   OcclusionAwareGenerator)
+from eamm_tpu_torch.models import (ATNet, EmotionK, EmotionMap, KPDetector,
+                                   KPDetectorA, OcclusionAwareGenerator)
 
 
 def _check_jacobian(params: dict) -> None:
@@ -58,9 +58,22 @@ def build_atnet(config: dict) -> ATNet:
     return ATNet()
 
 
-def build_all(config: dict) -> dict:
-    """The four models of the neutral render, by their variable names."""
+def build_emotion_detector(config: dict | None = None,
+                           kind: str = "linear") -> EmotionK | EmotionMap:
+    """kind 'linear*' -> EmotionK, 'map*' -> EmotionMap.  The reference
+    hard-codes block_expansion 32, max_features 1024, num_blocks 5 and
+    scale 0.25; ``model_params.emotion_params`` overrides them."""
+    kwargs = dict(block_expansion=32, num_channels=3, max_features=1024,
+                  num_blocks=5, scale_factor=0.25, num_classes=8)
+    kwargs.update(((config or {}).get("model_params") or {})
+                  .get("emotion_params") or {})
+    return EmotionMap(**kwargs) if kind.startswith("map") else EmotionK(**kwargs)
+
+
+def build_all(config: dict, emotion_kind: str = "linear") -> dict:
+    """The five models of the render, by their variable names."""
     return {"generator": build_generator(config),
             "kp_detector": build_kp_detector(config),
             "kp_detector_a": build_kp_detector_a(config),
-            "audio_feature": build_atnet(config)}
+            "audio_feature": build_atnet(config),
+            "emo_detector": build_emotion_detector(config, emotion_kind)}

@@ -9,6 +9,7 @@ converters (``eamm_tpu/compat/torch_convert.py``):
 - Conv2d kernel HWIO -> OIHW;
 - ConvTranspose2d: the JAX kernel is the spatially flipped HWIO kernel of
   the equivalent input-dilated conv -> unflip, back to [I, O, kh, kw];
+- Conv1d kernel [k, I, O] -> [O, I, k];
 - Linear kernel [I, O] -> [O, I]; the audio encoder's first Linear reads
   a [512, 12, 2] map that JAX flattens (h, w, c) and torch (c, h, w), so
   its columns are permuted back;
@@ -44,6 +45,11 @@ class _StateDict:
         self._put(f"{name}.weight", np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1))
         if "bias" in leaf:
             self._put(f"{name}.bias", leaf["bias"])
+
+    def conv1d(self, path: str, name: str) -> None:
+        leaf = self._at(self.params, path)
+        self._put(f"{name}.weight", np.asarray(leaf["kernel"]).transpose(2, 1, 0))
+        self._put(f"{name}.bias", leaf["bias"])
 
     def conv_transpose(self, path: str, name: str) -> None:
         leaf = self._at(self.params, path)
@@ -83,6 +89,11 @@ class _StateDict:
     def count(self, path: str, prefix: str) -> int:
         tree = self._at(self.params, path) if path else self.params
         return sum(1 for k in tree if k.startswith(prefix))
+
+    def mlp(self, path: str, name: str) -> None:
+        """_MLP ``fc0, fc1, ...`` -> Sequential Linear at 0, 2, 4, ..."""
+        for i in range(self.count(path, "fc")):
+            self.linear(f"{path}/fc{i}", f"{name}.{2 * i}")
 
 
 def _kp_heads(b: _StateDict) -> None:
@@ -150,12 +161,64 @@ def atnet_state_dict(variables: dict) -> dict:
     return b.sd
 
 
-def state_dicts_from_jax(variables: dict) -> dict:
-    """{'generator', 'kp_detector', 'kp_detector_a', 'audio_feature'} ->
-    port ``state_dict``s (other entries, such as the emotion model, are
-    not part of the port yet and are ignored)."""
+def _emotion_trunk(b: _StateDict) -> None:
+    """Hourglass, ResNet trunk and classifier of both emotion models."""
+    b.hourglass("predictor", "predictor")
+    b.conv("trunk/conv1", "conv1")
+    b.norm("trunk/bn1", "bn1")
+    for li in range(1, 5):
+        for bi in range(2):
+            path, name = f"trunk/layer{li}_{bi}", f"layer{li}.{bi}"
+            for part in ("conv1", "conv2"):
+                b.conv(f"{path}/{part}", f"{name}.{part}")
+            for part in ("bn1", "bn2"):
+                b.norm(f"{path}/{part}", f"{name}.{part}")
+            if "ds_conv" in b.params["trunk"][f"layer{li}_{bi}"]:
+                b.conv(f"{path}/ds_conv", f"{name}.downsample.0")
+                b.norm(f"{path}/ds_bn", f"{name}.downsample.1")
+    b.mlp("fc_p", "fc_p")
+    b.linear("classify", "classify.last_fc")
+
+
+def emotion_k_state_dict(variables: dict) -> dict:
+    b = _StateDict(variables)
+    _emotion_trunk(b)
+    for mlp in ("fc_n", "fc_all", "fc_single"):
+        if mlp in b.params:
+            b.mlp(mlp, mlp)
+    for jax_name, name in (("final_c0", "final.0"), ("final_c1", "final.3"),
+                           ("final_c2", "final.5"), ("final4_c0", "final_4.0"),
+                           ("final4_c1", "final_4.3"),
+                           ("final10_c0", "final_10.0"),
+                           ("final10_c1", "final_10.3")):
+        if jax_name in b.params:
+            b.conv1d(f"{jax_name}/conv", name)
+    return b.sd
+
+
+def emotion_map_state_dict(variables: dict) -> dict:
+    b = _StateDict(variables)
+    _emotion_trunk(b)
+    b.mlp("fc_all", "fc_all")
+    for j in range(4):                            # BN at 1, 4, 7
+        b.conv_transpose(f"decon{j}", f"final.{3 * j}")
+        if j < 3:
+            b.norm(f"norm{j}", f"final.{3 * j + 1}")
+    for head, suffix in (("head_10", ""), ("head_4", "_4")):
+        b.conv(f"{head}/kp", f"kp{suffix}")
+        b.conv(f"{head}/jacobian", f"jacobian{suffix}")
+    return b.sd
+
+
+def state_dicts_from_jax(variables: dict, emo_type: str = "linear_3") -> dict:
+    """{'generator', 'kp_detector', 'kp_detector_a', 'audio_feature',
+    'emo_detector'} -> port ``state_dict``s; the emotion model is EmotionMap
+    for a 'map*' ``emo_type`` and EmotionK otherwise."""
+    emotion = (emotion_map_state_dict if emo_type.startswith("map")
+               else emotion_k_state_dict)
     return {"generator": generator_state_dict(variables["generator"]),
             "kp_detector": kp_detector_state_dict(variables["kp_detector"]),
             "kp_detector_a": kp_detector_a_state_dict(
                 variables["kp_detector_a"]),
-            "audio_feature": atnet_state_dict(variables["audio_feature"])}
+            "audio_feature": atnet_state_dict(variables["audio_feature"]),
+            "emo_detector": emotion(variables["emo_detector"])}

@@ -1,13 +1,16 @@
-// Bilinear grid_sample (zeros padding) for NVIDIA Hopper, two kernels.
+// Bilinear grid_sample (zeros padding) for NVIDIA Hopper.
 //
 // Replaces the TPU kernels of eamm_tpu/ops/warp_pallas.py:
 //   warp_wide   <- grid_sample_twolevel_pallas / _twolevel_kernel (wide C,
 //                  the generator's bottleneck warp, [1,64,64,256] source)
 //   warp_narrow <- grid_sample_smallc_pallas / _smallc_kernel (C <= 8, dense
 //                  motion's K+1 deformed copies of the [1,64,64,3] source)
-// The TPU kernels factor the sample into tent-matrix products because the
-// TPU has no per-lane gather.  The GPU gathers natively, so both kernels
-// here read the four corners directly.
+//   warp_shared <- grid_sample_shared / _warp_kernel (one [Hs,Ws,C] source
+//                  by N grids, any C): warp_wide's kernel when C % 8 == 0,
+//                  else warp_groups_kernel
+// The TPU kernels factor the sample into tent-matrix or one-hot-matrix
+// products because the TPU has no per-lane gather.  The GPU gathers
+// natively, so the kernels here read the four corners directly.
 //
 // Semantics: image [Bi,H,W,C] NHWC, grid [B,Ho,Wo,2] (x, y) in [-1,1],
 // each float32 or bfloat16; grid b samples image b / (B / Bi).  The
@@ -23,6 +26,10 @@
 //   16-byte access per thread, 512 B coalesced per warp (bf16).
 //   warp_narrow: a thread owns one output pixel and all its C channels;
 //   neighbouring threads write neighbouring pixels.
+//   warp_groups (C not a multiple of 8, e.g. 35): pixel rows are not
+//   16-byte aligned, so a thread owns up to 8 channels of one pixel and
+//   reads and writes them one by one; neighbouring threads still cover
+//   neighbouring addresses.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -154,6 +161,40 @@ __global__ void warp_narrow_kernel(const T* __restrict__ src,
     if (j < C) from_float(o + j, acc[j]);
 }
 
+// One thread per (output pixel, group of up to 8 channels); any C.
+template <typename T, typename G>
+__global__ void warp_groups_kernel(const T* __restrict__ src,
+                                   const G* __restrict__ grid,
+                                   T* __restrict__ out, long long n_pix,
+                                   int P, int group, int H, int W, int C,
+                                   int align) {
+  const int groups = (C + 7) / 8;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_pix * groups) return;
+  const long long pix = t / groups;
+  const int c0 = (int)(t - pix * groups) * 8;
+  const int n = min(8, C - c0);
+  const int b = (int)(pix / P);
+  int idx[4];
+  float wgt[4];
+  corners(to_float(grid[2 * pix]), to_float(grid[2 * pix + 1]), H, W, align,
+          idx, wgt);
+  const T* s = src + (long long)(b / group) * H * W * C + c0;
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (idx[c] < 0) continue;
+    const T* corner = s + (long long)idx[c] * C;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j < n) acc[j] = fmaf(to_float(corner[j]), wgt[c], acc[j]);
+  }
+  T* o = out + pix * C + c0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (j < n) from_float(o + j, acc[j]);
+}
+
 constexpr int kThreads = 256;
 
 template <template <typename, typename> class Launch, typename T>
@@ -212,6 +253,17 @@ struct LaunchNarrow {
   }
 };
 
+template <typename T, typename G>
+struct LaunchGroups {
+  static void run(unsigned blocks, cudaStream_t s, const T* src, const G* grid,
+                  T* out, long long n_pix, int P, int group, int H, int W,
+                  int C, int align) {
+    warp_groups_kernel<T, G><<<blocks, kThreads, 0, s>>>(src, grid, out, n_pix,
+                                                         P, group, H, W, C,
+                                                         align);
+  }
+};
+
 }  // namespace
 
 // B grids of P = Ho*Wo pixels each over Bi images; group = B / Bi.  dtype
@@ -234,6 +286,22 @@ extern "C" int eamm_warp_narrow(const void* src, const void* grid, void* out,
   const long long n_pix = (long long)B * P;
   return dispatch<LaunchNarrow>(dtype, gdtype, src, grid, out, n_pix, n_pix, P,
                                 group, H, W, C, align, stream);
+}
+
+// Any C >= 1: the 16-byte kernel when C % 8 == 0, else groups of up to 8
+// channels read and written one by one.
+extern "C" int eamm_warp_shared(const void* src, const void* grid, void* out,
+                                int dtype, int gdtype, int B, int P, int group,
+                                int H, int W, int C, int align, void* stream) {
+  if (C < 1) return (int)cudaErrorInvalidValue;
+  const long long n_pix = (long long)B * P;
+  if (C % 8 == 0)
+    return dispatch<LaunchWide>(dtype, gdtype, src, grid, out, n_pix,
+                                n_pix * (C / 8), P, group, H, W, C, align,
+                                stream);
+  return dispatch<LaunchGroups>(dtype, gdtype, src, grid, out, n_pix,
+                                n_pix * ((C + 7) / 8), P, group, H, W, C,
+                                align, stream);
 }
 
 extern "C" const char* eamm_error_string(int code) {

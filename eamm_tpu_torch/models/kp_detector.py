@@ -20,9 +20,32 @@ from eamm_tpu_torch.ops.antialias import antialias_downsample
 from eamm_tpu_torch.ops.kp_expectation import kp_expectation
 
 
+def keypoint_heads(feature_map: torch.Tensor, kp: nn.Conv2d,
+                   jacobian: nn.Conv2d, temperature: float) -> dict:
+    """The two 7x7 VALID heads run as one conv whose output holds [K logit
+    maps | 4K Jacobian maps], then the expectation kernel reads both slices
+    in place."""
+    K = kp.out_channels
+    weight = torch.cat([kp.weight, jacobian.weight])
+    bias = torch.cat([kp.bias, jacobian.bias])
+    y = F.conv2d(feature_map, weight, bias)                     # [B, 5K, h, w]
+    B, _, h, w = y.shape
+    value, jac = kp_expectation(y[:, :K], y[:, K:].view(B, K, 4, h, w),
+                                temperature)
+    return {"value": value, "jacobian": jac}
+
+
+def reset_jacobian(jacobian: nn.Conv2d, num_kp: int) -> None:
+    """The reference initialization of a Jacobian head: zero weights,
+    identity bias."""
+    nn.init.zeros_(jacobian.weight)
+    with torch.no_grad():
+        jacobian.bias.copy_(torch.tensor([1.0, 0.0, 0.0, 1.0]).repeat(num_kp))
+
+
 class KPHead(nn.Module):
-    """The two 7x7 VALID heads and the expectation (names ``kp`` and
-    ``jacobian`` are the reference's, set on the owning detector)."""
+    """The two heads and the expectation (names ``kp`` and ``jacobian``
+    are the reference's, set on the owning detector)."""
 
     def __init__(self, in_features: int, num_kp: int, temperature: float):
         super().__init__()
@@ -32,21 +55,11 @@ class KPHead(nn.Module):
         self.temperature = temperature
 
     def reset_jacobian(self) -> None:
-        """The reference initialization: zero weights, identity bias."""
-        nn.init.zeros_(self.jacobian.weight)
-        with torch.no_grad():
-            self.jacobian.bias.copy_(torch.tensor([1.0, 0.0, 0.0, 1.0])
-                                     .repeat(self.num_kp))
+        reset_jacobian(self.jacobian, self.num_kp)
 
     def forward(self, feature_map: torch.Tensor) -> dict:
-        K = self.num_kp
-        weight = torch.cat([self.kp.weight, self.jacobian.weight])
-        bias = torch.cat([self.kp.bias, self.jacobian.bias])
-        y = F.conv2d(feature_map, weight, bias)                 # [B, 5K, h, w]
-        B, _, h, w = y.shape
-        value, jac = kp_expectation(y[:, :K], y[:, K:].view(B, K, 4, h, w),
-                                    self.temperature)
-        return {"value": value, "jacobian": jac}
+        return keypoint_heads(feature_map, self.kp, self.jacobian,
+                              self.temperature)
 
 
 class KPDetector(KPHead):

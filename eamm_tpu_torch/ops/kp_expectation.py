@@ -1,7 +1,10 @@
-"""The keypoint expectation of both keypoint heads, as a CUDA kernel.
+"""The keypoint expectation of the keypoint heads, as CUDA kernels.
 
-Replaces ``eamm_tpu/ops/kp_expectation.py::kp_expectation`` (its Pallas
-forward).  From logits ``pred`` [B, K, h, w] and Jacobian maps ``jmap``
+``kp_expectation`` replaces ``eamm_tpu/ops/kp_expectation.py::
+kp_expectation`` (its Pallas forward); ``kp_expectation_fused`` replaces
+``eamm_tpu/ops/kp_pallas.py::kp_expectation_fused`` (the same math for
+float32 or bfloat16 inputs, plus the normalized heatmap on request; no
+model calls it).  From logits ``pred`` [B, K, h, w] and Jacobian maps ``jmap``
 [B, K, 4, h, w] it computes, per (b, k):
 
   * ``value``    [B, K, 2]    — the softmax(pred / T) weighted mean of the
@@ -11,7 +14,7 @@ forward).  From logits ``pred`` [B, K, h, w] and Jacobian maps ``jmap``
 The kernel (``csrc/kp_expectation.cu``) reads both inputs in place through
 their strides, so the heads pass slices of one conv output uncopied.  A CPU
 tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  ``kp_expectation.launches`` counts the launches.
+raises.  Each wrapper counts its launches in its ``launches`` attribute.
 """
 from __future__ import annotations
 
@@ -82,4 +85,74 @@ def kp_expectation(pred: torch.Tensor, jmap: torch.Tensor,
     return value, jac
 
 
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the row's logits stay in shared memory: at most 192 KB of the 227 KB
+MAX_FUSED_PIXELS = 48 * 1024
+
+
+def kp_expectation_fused_plain(prediction: torch.Tensor, jmap: torch.Tensor,
+                               temperature: float,
+                               want_heatmap: bool = False):
+    """The plain version of ``kp_expectation_fused``, in float32."""
+    pred = prediction.float()
+    value, jac = kp_expectation_plain(pred, jmap.float(), temperature)
+    heat = (heatmap_softmax(pred, temperature).to(prediction.dtype)
+            if want_heatmap else None)
+    return value, jac, heat
+
+
+def kp_expectation_fused(prediction: torch.Tensor, jmap: torch.Tensor,
+                         temperature: float, want_heatmap: bool = False):
+    """(value [B,K,2] f32, jacobian [B,K,2,2] f32, heatmap [B,K,h,w] in the
+    prediction's dtype or None) from prediction [B,K,h,w] and jmap
+    [B,K,4,h,w], each float32 or bfloat16 (read as float32).  The TPU
+    kernel's row and lane padding with -1e9 logits is TPU layout and has
+    no counterpart here."""
+    _check(prediction, jmap)
+    if prediction.device.type == "cpu":
+        return kp_expectation_fused_plain(prediction, jmap, temperature,
+                                          want_heatmap)
+    if prediction.device.type != "cuda":
+        raise ValueError(f"kp_expectation_fused: tensors on "
+                         f"{prediction.device}; the kernel runs on CUDA and "
+                         "the plain version on the CPU")
+    if prediction.dtype not in _DTYPES or jmap.dtype not in _DTYPES:
+        raise TypeError(f"kp_expectation_fused: prediction {prediction.dtype},"
+                        f" jmap {jmap.dtype}; each must be float32 or "
+                        "bfloat16")
+    B, K, h, w = prediction.shape
+    for name, t in (("prediction", prediction), ("jmap", jmap)):
+        if t.stride(-1) != 1 or t.stride(-2) != w:
+            raise ValueError(f"kp_expectation_fused: each {name} row of h*w "
+                             f"must be contiguous, strides {t.stride()}")
+    if B * K == 0 or h < 2 or w < 2 or h * w > MAX_FUSED_PIXELS:
+        raise ValueError(f"kp_expectation_fused: shape "
+                         f"{tuple(prediction.shape)} needs rows, h, w >= 2 "
+                         f"and h*w <= {MAX_FUSED_PIXELS}")
+    dev = prediction.device
+    value = torch.empty((B, K, 2), dtype=torch.float32, device=dev)
+    jac = torch.empty((B, K, 2, 2), dtype=torch.float32, device=dev)
+    heat = (torch.empty((B, K, h, w), dtype=prediction.dtype, device=dev)
+            if want_heatmap else None)
+    lib = kernels.library("kp_expectation")
+    fn = lib.eamm_kp_expectation_fused
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 2
+                   + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 3
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    code = fn(prediction.data_ptr(), _DTYPES[prediction.dtype],
+              prediction.stride(0), prediction.stride(1),
+              jmap.data_ptr(), _DTYPES[jmap.dtype],
+              jmap.stride(0), jmap.stride(1), jmap.stride(2),
+              value.data_ptr(), jac.data_ptr(),
+              heat.data_ptr() if heat is not None else None,
+              B, K, h, w, float(temperature),
+              torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(lib, code, "kp_expectation_fused")
+    kp_expectation_fused.launches += 1
+    return value, jac, heat
+
+
 kp_expectation.launches = 0
+kp_expectation_fused.launches = 0

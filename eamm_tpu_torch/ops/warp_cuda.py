@@ -1,9 +1,11 @@
-"""The two bilinear warps of the render path, as CUDA kernels for Hopper.
+"""The bilinear warps, as CUDA kernels for Hopper.
 
 ``grid_sample_wide`` replaces ``eamm_tpu/ops/warp_pallas.py::
-grid_sample_twolevel_pallas`` (the generator's bottleneck warp) and
+grid_sample_twolevel_pallas`` (the generator's bottleneck warp),
 ``grid_sample_narrow`` replaces ``grid_sample_smallc_pallas`` (dense
-motion's deformed copies of the downsampled source).  Both compute
+motion's deformed copies of the downsampled source) and
+``grid_sample_shared`` replaces ``grid_sample_shared`` (one source, many
+grids, any channel count; no model calls it).  All compute
 ``ops.warp.grid_sample`` with zeros padding: image [Bi, H, W, C] NHWC,
 grid [B, Ho, Wo, 2], each float32 or bfloat16, grid b samples image
 b // (B // Bi), float32 arithmetic rounded once to the image dtype.  The kernels are in
@@ -30,6 +32,12 @@ def grid_sample_plain(image: torch.Tensor, grid: torch.Tensor,
     """The plain version of both kernels."""
     return grid_sample(image, grid, padding_mode="zeros",
                        align_corners=align_corners)
+
+
+def grid_sample_shared_plain(source: torch.Tensor, grids: torch.Tensor,
+                             align_corners: bool = False) -> torch.Tensor:
+    """The plain version of ``grid_sample_shared``."""
+    return grid_sample_plain(source[None], grids, align_corners)
 
 
 def _launch(entry: str, image: torch.Tensor, grid: torch.Tensor,
@@ -90,5 +98,27 @@ def grid_sample_narrow(image: torch.Tensor, grid: torch.Tensor,
     return out
 
 
+def grid_sample_shared(source: torch.Tensor, grids: torch.Tensor,
+                       align_corners: bool = False,
+                       exact: bool = False) -> torch.Tensor:
+    """Warp one source [Hs, Ws, C] by N grids [N, Ho, Wo, 2] -> [N, Ho, Wo, C]
+    in the source dtype, zeros padding, any C.
+
+    On the TPU ``exact=False`` runs the one-hot weight matrix at bf16
+    multiply precision; here the four corners are gathered and weighted in
+    float32 and rounded once, so both values of ``exact`` give that result.
+    The TPU's ``tile`` block size has no counterpart."""
+    del exact                       # both values give the float32 result
+    if source.dim() != 3:
+        raise ValueError(f"grid_sample_shared: need source [Hs,Ws,C], got "
+                         f"{tuple(source.shape)}")
+    if source.device.type == "cpu":
+        return grid_sample_shared_plain(source, grids, align_corners)
+    out = _launch("eamm_warp_shared", source[None], grids, align_corners)
+    grid_sample_shared.launches += 1
+    return out
+
+
 grid_sample_wide.launches = 0
 grid_sample_narrow.launches = 0
+grid_sample_shared.launches = 0

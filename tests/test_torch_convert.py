@@ -6,12 +6,15 @@ import numpy as np
 import pytest
 import torch
 
-from eamm_tpu.compat import (convert_atnet, convert_generator,
+from eamm_tpu.compat import (convert_atnet, convert_emotion_k,
+                             convert_emotion_map, convert_generator,
                              convert_kp_detector, convert_kp_detector_a)
 from eamm_tpu_torch import convert
 from eamm_tpu_torch.models import (ATNet, KPDetector, KPDetectorA,
                                    OcclusionAwareGenerator)
 from tests.test_compat_generator import TGenerator
+from tests.test_compat_emotion import TEmotionK
+from tests.test_compat_emotion_map import TEmotionMap
 from tests.test_compat_parity import (TATNet, TKPDetector, TKPDetectorA,
                                       _randomize_bn_stats)
 
@@ -64,6 +67,8 @@ def test_round_trip(make):
 
 
 def test_state_dicts_from_jax_covers_the_four_models():
+    """The four models of the neutral render, and the emotion model of
+    each ``emo_type``."""
     torch.manual_seed(1)
     sd = lambda m: {k: v.numpy() for k, v in m.state_dict().items()}
     variables = {
@@ -76,13 +81,19 @@ def test_state_dicts_from_jax_covers_the_four_models():
                                        num_down_blocks=2,
                                        num_bottleneck_blocks=1,
                                        dense_num_blocks=5),
-        "emo_detector": {"params": {}},
     }
-    out = convert.state_dicts_from_jax(variables)
-    assert sorted(out) == ["audio_feature", "generator", "kp_detector",
-                           "kp_detector_a"]
-    assert all(isinstance(v, torch.Tensor) for sd_ in out.values()
-               for v in sd_.values())
+    emotion = {
+        "linear_3": convert_emotion_k(sd(TEmotionK(be=8, max_f=32, blocks=3))),
+        "map": convert_emotion_map(sd(TEmotionMap(be=8, max_f=32, blocks=3))),
+    }
+    for emo_type, emo in emotion.items():
+        out = convert.state_dicts_from_jax({**variables, "emo_detector": emo},
+                                           emo_type)
+        assert sorted(out) == ["audio_feature", "emo_detector", "generator",
+                               "kp_detector", "kp_detector_a"]
+        assert ("kp_4.weight" in out["emo_detector"]) == (emo_type == "map")
+        assert all(isinstance(v, torch.Tensor) for sd_ in out.values()
+                   for v in sd_.values())
     assert np.array_equal(out["kp_detector_a"]["kp.weight"].numpy(),
                           variables["kp_detector_a"]["params"]["head"]["kp"]
                           ["kernel"].transpose(3, 2, 0, 1))

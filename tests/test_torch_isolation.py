@@ -63,6 +63,13 @@ def test_chip_smoke_cpu_vs_device_on_cpu():
     assert result["l1_max"] == 0.0
 
 
+def test_chip_smoke_emotional_cpu_vs_device_on_cpu():
+    """Phase 4's emotional render with both sides on the CPU: identical."""
+    result = chip_smoke.cpu_vs_device("cpu", emotion=True)
+    assert result["emotion"] and result["frames"] == 24
+    assert result["l1_max"] == 0.0
+
+
 def test_kernel_sources_are_shipped():
     from eamm_tpu_torch import kernels
     for name in kernels.SOURCES:

@@ -11,7 +11,7 @@ import torch
 import jax.numpy as jnp
 
 import eamm_tpu.ops.kp_expectation as jax_kpx
-from eamm_tpu.ops import warp_pallas
+from eamm_tpu.ops import kp_pallas, warp_pallas
 from eamm_tpu_torch.ops import kp_expectation as kpx
 from eamm_tpu_torch.ops import warp_cuda
 
@@ -125,14 +125,89 @@ def test_kp_expectation_reads_conv_output_slices():
                            y[:, 10:].reshape(3, 10, 4, 9, 11).to("meta"), 0.1)
 
 
+# (source shape, grids shape, tile): the JAX package's own case, and any C
+# (35: neither a multiple of 8 nor <= 8) at a pixel count (3*5*7) that is
+# not a multiple of the TPU tile
+SHARED_CASES = [((16, 16, 8), (3, 8, 8, 2), 128),
+                ((16, 12, 35), (3, 5, 7, 2), 64)]
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("case", range(len(SHARED_CASES)))
+def test_shared_warp_plain_matches_pallas(case, align_corners):
+    src_shape, grid_shape, tile = SHARED_CASES[case]
+    rng = np.random.RandomState(30 + case)
+    src = rng.randn(*src_shape).astype(np.float32)
+    g = rng.uniform(-1.2, 1.2, grid_shape).astype(np.float32)
+    ref = _interpret(warp_pallas.grid_sample_shared, jnp.asarray(src),
+                     jnp.asarray(g), align_corners=align_corners, tile=tile,
+                     exact=True)
+    for exact in (False, True):         # both give the float32 result
+        ours = warp_cuda.grid_sample_shared(torch.from_numpy(src),
+                                            torch.from_numpy(g),
+                                            align_corners, exact)
+        np.testing.assert_allclose(ours.numpy(), ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape,want_heatmap,dtype",
+                         [((3, 10, 58, 58), True, np.float32),
+                          ((3, 2, 58, 58), False, np.float32),
+                          ((2, 3, 13, 17), True, "bfloat16")])
+def test_kp_expectation_fused_plain_matches_pallas(shape, want_heatmap, dtype):
+    """value and jacobian within 1e-5, the float32 heatmap within 1e-6
+    (tests/test_kp_pallas.py's bounds); a bfloat16 heatmap within one
+    bfloat16 rounding (rtol 1e-2)."""
+    rng = np.random.RandomState(2)
+    B, K, h, w = shape
+    pred = rng.randn(B, K, h, w).astype(np.float32)
+    jmap = rng.randn(B, K, 4, h, w).astype(np.float32)
+    jp, jj = jnp.asarray(pred), jnp.asarray(jmap)
+    tp, tj = torch.from_numpy(pred), torch.from_numpy(jmap)
+    if dtype == "bfloat16":
+        jp, jj = jp.astype(jnp.bfloat16), jj.astype(jnp.bfloat16)
+        tp, tj = tp.bfloat16(), tj.bfloat16()
+    ref = kp_pallas.kp_expectation_fused(jp, jj, 0.1,
+                                         want_heatmap=want_heatmap,
+                                         interpret=True)
+    value, jac, heat = kpx.kp_expectation_fused(tp, tj, 0.1, want_heatmap)
+    np.testing.assert_allclose(value.numpy(), np.asarray(ref[0]), atol=ATOL)
+    np.testing.assert_allclose(jac.numpy(), np.asarray(ref[1]), atol=ATOL)
+    if not want_heatmap:
+        assert heat is None and ref[2] is None
+    elif dtype == "bfloat16":
+        assert heat.dtype == torch.bfloat16
+        np.testing.assert_allclose(heat.float().numpy(),
+                                   np.asarray(ref[2].astype(jnp.float32)),
+                                   rtol=1e-2, atol=1e-6)
+    else:
+        np.testing.assert_allclose(heat.numpy(), np.asarray(ref[2]), atol=1e-6)
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError):                  # source not [Hs,Ws,C]
+        warp_cuda.grid_sample_shared(torch.zeros(1, 8, 8, 3),
+                                     torch.zeros(2, 4, 4, 2))
+    with pytest.raises(ValueError):                  # neither CPU nor CUDA
+        warp_cuda.grid_sample_shared(torch.zeros(8, 8, 35, device="meta"),
+                                     torch.zeros(2, 4, 4, 2, device="meta"))
+    with pytest.raises(ValueError):                  # jmap not [B,K,4,h,w]
+        kpx.kp_expectation_fused(torch.zeros(1, 2, 5, 5),
+                                 torch.zeros(1, 2, 2, 5, 5), 0.1)
+    with pytest.raises(ValueError):                  # neither CPU nor CUDA
+        kpx.kp_expectation_fused(torch.zeros(1, 2, 5, 5, device="meta"),
+                                 torch.zeros(1, 2, 4, 5, 5, device="meta"), 0.1)
+
+
 def test_launch_counters_untouched_on_cpu():
-    before = (warp_cuda.grid_sample_wide.launches,
-              warp_cuda.grid_sample_narrow.launches,
-              kpx.kp_expectation.launches)
+    wrappers = (warp_cuda.grid_sample_wide, warp_cuda.grid_sample_narrow,
+                warp_cuda.grid_sample_shared, kpx.kp_expectation,
+                kpx.kp_expectation_fused)
+    before = [w.launches for w in wrappers]
     warp_cuda.grid_sample_wide(torch.zeros(1, 4, 4, 8), torch.zeros(1, 2, 2, 2))
     warp_cuda.grid_sample_narrow(torch.zeros(1, 4, 4, 3),
                                  torch.zeros(1, 2, 2, 2))
+    warp_cuda.grid_sample_shared(torch.zeros(4, 4, 35), torch.zeros(2, 2, 2, 2))
     kpx.kp_expectation(torch.zeros(1, 2, 3, 3), torch.zeros(1, 2, 4, 3, 3), 0.1)
-    assert (warp_cuda.grid_sample_wide.launches,
-            warp_cuda.grid_sample_narrow.launches,
-            kpx.kp_expectation.launches) == before
+    kpx.kp_expectation_fused(torch.zeros(1, 2, 3, 3),
+                             torch.zeros(1, 2, 4, 3, 3), 0.1, True)
+    assert [w.launches for w in wrappers] == before

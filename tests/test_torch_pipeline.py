@@ -29,7 +29,7 @@ def port(tiny_pipeline):
 def test_neutral_render_matches_jax(tiny_pipeline, port):
     src, wav, pose, _ = _inputs()
     ref = tiny_pipeline.render(src, wav, pose, add_emo=False)
-    ours = port.render(src, wav, pose)
+    ours = port.render(src, wav, pose, add_emo=False)
     assert ours.shape == ref.shape and ours.dtype == np.float32
     l1 = np.abs(ours - ref).mean(axis=(1, 2, 3))
     assert l1.max() < 1e-2, l1
@@ -47,17 +47,29 @@ def test_bf16_render_tracks_f32(port):
         compute_dtype=torch.bfloat16, **OPTS))
     assert bf16.models["generator"] is port.models["generator"]
     assert next(bf16.generator.parameters()).dtype == torch.bfloat16
-    d = np.abs(port.render_uint8(src, wav, pose).astype(np.float32)
-               - bf16.render_uint8(src, wav, pose).astype(np.float32))
+    d = np.abs(port.render_uint8(src, wav, pose, add_emo=False)
+               .astype(np.float32)
+               - bf16.render_uint8(src, wav, pose, add_emo=False)
+               .astype(np.float32))
     assert d.max() <= 2.0, (d.mean(), d.max())
 
 
 def test_unported_options_raise(port):
-    src, wav, pose, emo = _inputs()
+    """What is still to port raises, naming its ROADMAP item: the packed
+    yuv420 emotion upload (uint8 planes [U, 384, 256]), yuv420 transfer and
+    adapt_scale."""
+    src, wav, pose, _ = _inputs()
+    packed = np.zeros((2, 384, 256), np.uint8)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        port.render_uint8(src, wav, pose, packed)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        port.prepare_emotion(packed)
+    yuv = EammPipeline(TINY_CONFIG, models=port.models, options=PipelineOptions(
+        transfer_format="yuv420", **OPTS))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        yuv.render_uint8(src, wav, pose, add_emo=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.render_uint8(src, wav, pose, emo, add_emo=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.render_uint8(src, wav, pose, adapt_scale=True)
+        port.render_uint8(src, wav, pose, add_emo=False, adapt_scale=True)
 
 
 @pytest.mark.parametrize("frames,T,smooth", [(1, 30, True), (5, 30, True),
