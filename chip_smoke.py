@@ -14,15 +14,19 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
 2. build: every ``eamm_tpu_torch/csrc/*.cu``, one nvcc each, in parallel;
    seconds and ptxas's registers, shared memory and spills per kernel.
 3. kernel parity: each kernel against its plain PyTorch version on the
-   card at the main path's shapes, plus a second source (Bi=2) and a pixel
-   count that is not a multiple of the block; grids from U(-1.2, 1.2) put
-   corners outside the image.  Warp grids come in the image dtype, as on
-   the main path, plus one case each in the other dtype.  The shared warp
+   card at the main path's shapes, plus a second source (Bi=2) and ragged
+   outputs ([3,5,7], [2,13,17] over two sources) that are not multiples of
+   the kernels' tiles; grids from U(-1.2, 1.2) put corners outside the
+   image, and one grid per warp lies wholly outside it (all zeros).  Warp
+   grids come in the image dtype, as on the main path, plus one case each
+   in the other dtype and one with align_corners=True.  The shared warp
    at [64,64,256] by [32,64,64,2] in both dtypes and both align_corners,
    and at C = 3 and 35; the fused keypoint expectation at [256,10,58,58]
    with and without the heatmap, in bfloat16, and at a ragged [3,2,13,17].
    float32 within 1e-5 (abs and rel); bfloat16 within 1e-2 (abs and rel:
-   one output rounding on unit-scale data).
+   one output rounding on unit-scale data).  After phase 5, the wide and
+   narrow warps again at the main path's own arguments, captured from the
+   first decode chunk of a neutral 10 s request.
 4. CPU vs card: the same seeded weights and clip rendered by the port on
    the CPU (plain versions) and on the card (kernels) in float32, neutral
    at TINY_CONFIG widths and emotional (5 emotion frames) at
@@ -46,10 +50,19 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    - entry points: the shared warp and the fused keypoint expectation,
      which no model calls, once each at the shapes of phase 6.
    Peak device memory of each path.
-6. kernel times: CUDA events over many launches after warm-up at the
-   main-path shapes: the kernel, its plain version, one PyTorch library
-   call computing the same function where there is one, and the bound
-   (the larger of bytes at 3.35 TB/s and operations at 67 TFLOP/s f32).
+6. kernel times at the main-path shapes: the kernel, its plain version,
+   one PyTorch library call computing the same function where there is
+   one, and the bound (the larger of bytes at 3.35 TB/s and operations at
+   67 TFLOP/s f32).  A kernel's and a library call's ``ms`` are device
+   time: CUDA events around replays of 20 calls captured in a CUDA graph,
+   so the wrappers' Python is left out (eager calls back to back time the
+   host below ~0.02 ms a call).  The three warps are timed at two inputs,
+   the random grid and the main path's captured arguments, each in 6
+   samples of ~20 ms taken in turns (kernel, library, store-only,
+   store-only, library, kernel; three rounds), as median, min and max,
+   both replayed and eager (``call_ms``); the store-only kernel writes the
+   output's bytes and nothing else, the card's write ceiling.  The plain
+   versions are timed eager.
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line
 (with the path whose launches each row counts), and last
@@ -209,12 +222,15 @@ def uint8_diff(a: np.ndarray, b: np.ndarray) -> dict:
 
 def warp_case(Bi: int, B: int, hw: tuple[int, int], C: int,
               dtype: torch.dtype, gen: torch.Generator,
-              grid_dtype: torch.dtype | None = None):
+              grid_dtype: torch.dtype | None = None, outside: bool = False):
     """A random [Bi,64,64,C] image and a [B,*hw,2] grid in U(-1.2, 1.2),
-    the grid in the image dtype unless ``grid_dtype`` is given."""
+    the grid in the image dtype unless ``grid_dtype`` is given; with
+    ``outside``, |x| and |y| in [1.5, 3], so every corner lies outside."""
     image = torch.randn((Bi, 64, 64, C), generator=gen, device="cuda"
                         ).to(dtype)
     grid = torch.rand((B, *hw, 2), generator=gen, device="cuda") * 2.4 - 1.2
+    if outside:
+        grid = torch.sign(grid) * (1.5 + grid.abs() * 1.25)
     return (image, grid.to(grid_dtype or dtype))
 
 
@@ -225,23 +241,24 @@ def kp_case(B: int, gen: torch.Generator, h: int = 58, w: int = 58,
     return (y[:, :K], y[:, K:].view(B, K, 4, h, w), 0.1)
 
 
-def parity() -> dict:
-    """Every kernel against its plain version; returns the largest |error|
-    per kernel."""
+def parity_cases() -> list:
+    """(kernel, dtype, args, options) of every phase-3 case but the
+    captured ones."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = []                                     # (name, dtype, args, kw)
+    cases = []
     for dtype in (torch.float32, torch.bfloat16):
-        for Bi, B, hw in ((1, 32, (64, 64)), (2, 32, (64, 64)), (1, 3, (5, 7))):
-            cases.append(("warp_wide", dtype,
-                          warp_case(Bi, B, hw, 256, dtype, gen), {}))
-        for Bi, B, hw in ((1, 352, (64, 64)), (2, 352, (64, 64)),
-                          (1, 3, (5, 7))):
-            cases.append(("warp_narrow", dtype,
-                          warp_case(Bi, B, hw, 3, dtype, gen), {}))
         other = torch.bfloat16 if dtype == torch.float32 else torch.float32
-        for name, C in (("warp_wide", 256), ("warp_narrow", 3)):
+        for name, C, B in (("warp_wide", 256, 32), ("warp_narrow", 3, 352)):
+            for Bi, n, hw in ((1, B, (64, 64)), (2, B, (64, 64)),
+                              (1, 3, (5, 7)), (2, 2, (13, 17))):
+                cases.append((name, dtype, warp_case(Bi, n, hw, C, dtype, gen),
+                              {}))
             cases.append((name, dtype, warp_case(1, 4, (64, 64), C, dtype, gen,
                                                  grid_dtype=other), {}))
+            cases.append((name, dtype, warp_case(1, B, (64, 64), C, dtype, gen),
+                          {"align_corners": True}))
+            cases.append((name, dtype, warp_case(1, 4, (64, 64), C, dtype, gen,
+                                                 outside=True), {}))
         for align in (False, True):
             image, grid = warp_case(1, 32, (64, 64), 256, dtype, gen)
             cases.append(("warp_shared", dtype, (image[0], grid),
@@ -259,7 +276,19 @@ def parity() -> dict:
                   {"want_heatmap": True}))
     cases.append(("kp_expectation_fused", torch.float32,
                   kp_case(3, gen, 13, 17, K=2), {"want_heatmap": True}))
-    worst = {name: 0.0 for name in KERNELS}
+    return cases
+
+
+def captured_cases(captured: dict) -> list:
+    """The wide and narrow warps at the main path's own arguments."""
+    return [(name, captured[name][0].dtype, captured[name], {})
+            for name in ("warp_wide", "warp_narrow")]
+
+
+def parity(cases: list, worst: dict | None = None) -> dict:
+    """Each case's kernel against its plain version; returns the largest
+    |error| per kernel, taken together with ``worst``."""
+    worst = dict(worst or {name: 0.0 for name in KERNELS})
     for name, dtype, args, kw in cases:
         wrapper, plain = KERNELS[name][:2]
         got, want = wrapper(*args, **kw), plain(*args, **kw)
@@ -273,6 +302,10 @@ def parity() -> dict:
                 continue
             torch.testing.assert_close(g, w, rtol=tol, atol=tol)
             err = max(err, (g.float() - w.float()).abs().max().item())
+        if name.startswith("warp") and args[1].float().abs().min() >= 1.5 \
+                and got[0].abs().max() != 0:
+            raise AssertionError(f"{name}: nonzero output for a grid "
+                                 "wholly outside the image")
         worst[name] = max(worst[name], err)
         tensors = [a for a in args if torch.is_tensor(a)]
         emit("parity", kernel=name, dtypes=[str(a.dtype) for a in tensors],
@@ -422,6 +455,34 @@ def emotional_path(pipe: EammPipeline) -> dict:
     return counts
 
 
+def capture_warp_inputs(pipe: EammPipeline, seconds: float = 10.0,
+                        seed: int = 3) -> dict:
+    """The arguments (image, grid) that the first decode chunk of a
+    neutral request passes to the wide and narrow warps, cloned.  The
+    models call the warps by their module attributes, which are wrapped for
+    this one request."""
+    from eamm_tpu_torch.models import dense_motion, generator
+    spied = {"warp_narrow": (dense_motion, "grid_sample_narrow"),
+             "warp_wide": (generator, "grid_sample_wide")}
+    captured, originals = {}, {}
+
+    def spy(name, fn):
+        def call(image, grid, *args, **kw):
+            captured.setdefault(name, (image.clone(), grid.clone()))
+            return fn(image, grid, *args, **kw)
+        return call
+
+    for name, (module, attr) in spied.items():
+        originals[name] = getattr(module, attr)
+        setattr(module, attr, spy(name, originals[name]))
+    try:
+        pipe.render_uint8(*clip_inputs(seconds, seed), add_emo=False)
+    finally:
+        for name, (module, attr) in spied.items():
+            setattr(module, attr, originals[name])
+    return captured
+
+
 def entry_points() -> dict:
     """The shared warp and the fused keypoint expectation through their
     own entry points (no model calls them)."""
@@ -448,6 +509,10 @@ def time_ms(fn, budget_s: float = 0.3) -> float:
     torch.cuda.synchronize()
     iters = int(min(500, max(5, budget_s / max(time.perf_counter() - t0,
                                                   1e-6))))
+    return events_ms(fn, iters)
+
+
+def events_ms(fn, iters: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -456,6 +521,45 @@ def time_ms(fn, budget_s: float = 0.3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graphed(fn, calls: int = 20):
+    """``fn`` called ``calls`` times, captured in one CUDA graph after
+    warm-up; returns (replay, calls).  A replay runs the captured launches
+    back to back on the card with no host work between them, so its time
+    is device time, whatever the caller's Python costs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return graph.replay, calls
+
+
+def in_turns(fns: dict, rounds: int = 3, sample_s: float = 0.02) -> dict:
+    """name -> (fn, calls per fn call), each timed in 2 * ``rounds``
+    samples of about ``sample_s``, taken in turns (a, b, c, c, b, a per
+    round); returns name -> {median, min, max} ms per call."""
+    iters = {name: max(5, int(sample_s / (time_ms(fn, 0.01) * 1e-3)))
+             for name, (fn, _) in fns.items()}
+    order = list(fns) + list(fns)[::-1]
+    samples = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name in order:
+            fn, calls = fns[name]
+            samples[name].append(events_ms(fn, iters[name]) / calls)
+    return {name: {"median": float(np.median(v)), "min": min(v),
+                   "max": max(v)} for name, v in samples.items()}
+
+
+def device_ms(fn) -> float:
+    """Median device ms per call of ``fn`` (CUDA graph replays)."""
+    return in_turns({"ms": graphed(fn)})["ms"]["median"]
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -468,25 +572,44 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def timings() -> dict:
+def timings(captured: dict) -> dict:
+    """Phase 6; the warps at the random grid and at ``captured``, the main
+    path's arguments."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
-    for name, C, B, dtype in (("warp_wide", 256, 32, torch.bfloat16),
-                              ("warp_narrow", 3, 352, torch.bfloat16),
-                              ("warp_shared", 256, 32, torch.float32)):
-        image, grid = warp_case(1, B, (64, 64), C, dtype, gen)
-        args = (image[0], grid) if name == "warp_shared" else (image, grid)
+    wide = captured["warp_wide"]
+    for name, C, B, dtype, main in (
+            ("warp_wide", 256, 32, torch.bfloat16, wide),
+            ("warp_narrow", 3, 352, torch.bfloat16, captured["warp_narrow"]),
+            ("warp_shared", 256, 32, torch.float32,
+             (wide[0].float(), wide[1].float()))):
         wrapper, plain = KERNELS[name][:2]
-        res = wrapper(*args)
-        nchw = image.permute(0, 3, 1, 2).expand(B, -1, -1, -1)
+        rows = {}
+        for inputs, (image, grid) in (
+                ("random", warp_case(1, B, (64, 64), C, dtype, gen)),
+                ("captured", main)):
+            args = (image[0], grid) if name == "warp_shared" else (image, grid)
+            res = wrapper(*args)
+            sink = torch.empty_like(res)
+            nchw = image.permute(0, 3, 1, 2).expand(len(grid), -1, -1, -1)
+            fns = {"ms": lambda: wrapper(*args),
+                   "library_ms": lambda: F.grid_sample(
+                       nchw, grid, mode="bilinear", padding_mode="zeros",
+                       align_corners=False),
+                   "store_ms": lambda: warp_cuda.store_only(sink)}
+            device = in_turns({k: graphed(f) for k, f in fns.items()})
+            eager = in_turns({"call_ms": (fns["ms"], 1),
+                              "library_call_ms": (fns["library_ms"], 1),
+                              "store_call_ms": (fns["store_ms"], 1)})
+            rows[inputs] = {**device, **eager,
+                            "plain_ms": time_ms(lambda: plain(*args))}
         out[name] = {
-            "ms": time_ms(lambda: wrapper(*args)),
-            "plain_ms": time_ms(lambda: plain(*args)),
-            "library_ms": time_ms(lambda: F.grid_sample(
-                nchw, grid, mode="bilinear", padding_mode="zeros",
-                align_corners=False)),
+            "ms": rows["random"]["ms"]["median"],
+            "plain_ms": rows["random"]["plain_ms"],
+            "library_ms": rows["random"]["library_ms"]["median"],
             "bound": bound_ms(nbytes(image, grid, res),
                               8 * res.numel()),    # 4 FMA per value
+            "timing": rows,
         }
     pred, jmap, temp = kp_case(256, gen)
     B, K, h, w = pred.shape
@@ -494,15 +617,15 @@ def timings() -> dict:
     # pixel (divide, exp, 7 multiply-adds)
     n_bytes, n_ops = B * K * (5 * h * w + 6) * 4, 16 * B * K * h * w
     out["kp_expectation"] = {
-        "ms": time_ms(lambda: kpx.kp_expectation(pred, jmap, temp)),
+        "ms": device_ms(lambda: kpx.kp_expectation(pred, jmap, temp)),
         "plain_ms": time_ms(lambda: kpx.kp_expectation_plain(pred, jmap, temp)),
         "library_ms": None,
         "bound": bound_ms(n_bytes, n_ops),
     }
     # and the heatmap: one float written and one divide per pixel
     out["kp_expectation_fused"] = {
-        "ms": time_ms(lambda: kpx.kp_expectation_fused(pred, jmap, temp,
-                                                       True)),
+        "ms": device_ms(lambda: kpx.kp_expectation_fused(pred, jmap, temp,
+                                                         True)),
         "plain_ms": time_ms(lambda: kpx.kp_expectation_fused_plain(
             pred, jmap, temp, True)),
         "library_ms": None,
@@ -533,15 +656,17 @@ def main() -> int:
                                      b.ptxas.splitlines() if "ptxas" in line]}
                   for b in builds})
 
-    worst = parity()
+    worst = parity(parity_cases())
     emit("cpu_vs_card", **cpu_vs_device("cuda"))
     emit("cpu_vs_card", **cpu_vs_device("cuda", emotion=True))
     opts = PipelineOptions(frame_chunk=32, time_bucket=32,
                            compute_dtype=torch.bfloat16, device="cuda")
     pipe, _ = main_path(opts)
+    captured = capture_warp_inputs(pipe)
+    worst = parity(captured_cases(captured), worst)
     counts = emotional_path(pipe)
     entry = entry_points()
-    times = timings()
+    times = timings(captured)
 
     # whose launches each row counts
     source_of = {name: ("emotional linear_3 frames 10 s", counts["frames"])
@@ -558,7 +683,8 @@ def main() -> int:
                      "launches": launches[name],
                      "max_abs_err": worst[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-                     "bound_by": t["bound"][1], "library_ms": t["library_ms"]})
+                     "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+                     **({"timing": t["timing"]} if "timing" in t else {})})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -211,3 +211,42 @@ def test_launch_counters_untouched_on_cpu():
     kpx.kp_expectation_fused(torch.zeros(1, 2, 3, 3),
                              torch.zeros(1, 2, 4, 3, 3), 0.1, True)
     assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_narrow_shared_memory_check(dtype):
+    """The narrow kernel keeps its source in shared memory: the JAX kernel's
+    documented sources (H*W <= 4096, C <= 8) fit in both dtypes, a 256x256
+    one does not, and the wrapper refuses it before any launch."""
+    for C in (1, 3, 8):
+        assert warp_cuda.narrow_smem_bytes(64, 64, C, dtype) \
+            <= warp_cuda.SMEM_LIMIT
+    with pytest.raises(ValueError):
+        warp_cuda.narrow_smem_bytes(256, 256, 3, dtype)
+    with pytest.raises(ValueError, match="shared memory"):
+        warp_cuda.grid_sample_narrow(
+            torch.zeros(1, 256, 256, 3, dtype=dtype, device="meta"),
+            torch.zeros(2, 4, 4, 2, dtype=dtype, device="meta"))
+
+
+def test_capture_helper_returns_the_models_warp_arguments():
+    """chip_smoke.py's capture of the main path's warp arguments, on the
+    CPU at TINY_CONFIG: one decode chunk's, at the shapes the models pass,
+    and the models' warps are restored afterwards."""
+    import chip_smoke
+    from eamm_tpu_torch.infer import EammPipeline, PipelineOptions
+    from eamm_tpu_torch.models import dense_motion, generator
+    pipe = EammPipeline.from_random(chip_smoke.TINY_CONFIG, 0, PipelineOptions(
+        device="cpu", frame_chunk=8, time_bucket=8))
+    captured = chip_smoke.capture_warp_inputs(pipe, seconds=1.0)
+    gen = chip_smoke.TINY_CONFIG["model_params"]["generator_params"]
+    K = chip_smoke.TINY_CONFIG["model_params"]["common_params"]["num_kp"]
+    width = min(gen["max_features"],
+                gen["block_expansion"] * 2 ** gen["num_down_blocks"])
+    image, grid = captured["warp_narrow"]
+    assert image.shape == (1, 64, 64, 3)
+    assert grid.shape == (8 * (K + 1), 64, 64, 2)
+    image, grid = captured["warp_wide"]
+    assert image.shape == (1, 64, 64, width) and grid.shape == (8, 64, 64, 2)
+    assert dense_motion.grid_sample_narrow is warp_cuda.grid_sample_narrow
+    assert generator.grid_sample_wide is warp_cuda.grid_sample_wide
