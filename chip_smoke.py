@@ -22,9 +22,17 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    in the other dtype and one with align_corners=True.  The shared warp
    at [64,64,256] by [32,64,64,2] in both dtypes and both align_corners,
    and at C = 3 and 35; the fused keypoint expectation at [256,10,58,58]
-   with and without the heatmap, in bfloat16, and at a ragged [3,2,13,17].
-   float32 within 1e-5 (abs and rel); bfloat16 within 1e-2 (abs and rel:
-   one output rounding on unit-scale data).  After phase 5, the wide and
+   with and without the heatmap, in bfloat16 with and without it, with
+   pred and jmap in different dtypes (both ways), contiguous, at
+   temperature 1, with peaked rows (one logit 30 above the rest) and flat
+   ones, 4 bytes off 16, at [1,10,58,58] (fewer rows than SMs), at a ragged
+   [3,2,13,17], at its largest row [1,2,200,240] in both dtypes and at
+   its widest [1,1,2,24576].
+   Each output within its dtype's tolerance: float32 within 1e-5 (abs
+   and rel), bfloat16 within 1e-2 (abs and rel: one output rounding on
+   unit-scale data); the warps' at their inputs' dtype, the keypoint
+   expectations' value and jacobian (float32 from any input dtype) at
+   float32's.  After phase 5, the wide and
    narrow warps again at the main path's own arguments, captured from the
    first decode chunk of a neutral 10 s request.
 4. CPU vs card: the same seeded weights and clip rendered by the port on
@@ -61,8 +69,12 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    samples of ~20 ms taken in turns (kernel, library, store-only,
    store-only, library, kernel; three rounds), as median, min and max,
    both replayed and eager (``call_ms``); the store-only kernel writes the
-   output's bytes and nothing else, the card's write ceiling.  The plain
-   versions are timed eager.
+   output's bytes and nothing else, the card's write ceiling.  The fused
+   keypoint expectation is timed three ways (float32 with and without the
+   heatmap, bfloat16 with it), each with its own bound, in the same turns
+   as K3 on the same float32 inputs (``timing`` in its row, with the
+   launch ``plan`` the wrapper makes for the first).
+   The plain versions are timed eager.
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line
 (with the path whose launches each row counts), and last
@@ -235,10 +247,33 @@ def warp_case(Bi: int, B: int, hw: tuple[int, int], C: int,
 
 
 def kp_case(B: int, gen: torch.Generator, h: int = 58, w: int = 58,
-            K: int = 10, dtype: torch.dtype = torch.float32):
-    """pred and jmap as the heads pass them: slices of one conv output."""
-    y = torch.randn((B, 5 * K, h, w), generator=gen, device="cuda").to(dtype)
-    return (y[:, :K], y[:, K:].view(B, K, 4, h, w), 0.1)
+            K: int = 10, dtype: torch.dtype = torch.float32,
+            jdtype: torch.dtype | None = None, sliced: bool = True,
+            temperature: float = 0.1, logits: str = "random",
+            offset: int = 0):
+    """(pred, jmap, temperature) as the heads pass them: slices of one conv
+    output (of two where ``jdtype``, jmap's dtype, differs from pred's),
+    starting ``offset`` values into its storage, or contiguous tensors
+    unless ``sliced``.  ``logits`` "peaked" puts one logit per row 30 above
+    the rest (all 0), "flat" makes them all equal."""
+    jdtype = jdtype or dtype
+    if sliced:
+        y = torch.randn(B * 5 * K * h * w + offset, generator=gen,
+                        device="cuda")[offset:].view(B, 5 * K, h, w)
+        yj = y if jdtype == dtype else torch.randn(
+            (B, 5 * K, h, w), generator=gen, device="cuda")
+        pred = y.to(dtype)[:, :K]
+        jmap = yj.to(jdtype)[:, K:].view(B, K, 4, h, w)
+    else:
+        pred = torch.randn((B, K, h, w), generator=gen, device="cuda").to(dtype)
+        jmap = torch.randn((B, K, 4, h, w), generator=gen, device="cuda"
+                           ).to(jdtype)
+    if logits != "random":
+        pred.zero_()
+    if logits == "peaked":
+        at = torch.randint(h * w, (B, K, 1), generator=gen, device="cuda")
+        pred.flatten(2).scatter_(2, at, 30.0)
+    return (pred, jmap, temperature)
 
 
 def parity_cases() -> list:
@@ -276,6 +311,29 @@ def parity_cases() -> list:
                   {"want_heatmap": True}))
     cases.append(("kp_expectation_fused", torch.float32,
                   kp_case(3, gen, 13, 17, K=2), {"want_heatmap": True}))
+    # the fused kernel's other paths: mixed dtypes, contiguous inputs, rows
+    # 4 bytes off 16 (loose pixels at both ends), fewer rows than SMs, no
+    # heatmap in bfloat16, temperature 1, peaked and flat rows, the largest
+    # row it takes, and the widest (its coordinate tables do not fit)
+    heat = {"want_heatmap": True}
+    for pd, jd in ((torch.bfloat16, torch.float32),
+                   (torch.float32, torch.bfloat16)):
+        cases.append(("kp_expectation_fused", pd,
+                      kp_case(256, gen, dtype=pd, jdtype=jd), heat))
+    for pd, args, kw in (
+            (torch.float32, kp_case(256, gen, sliced=False), heat),
+            (torch.float32, kp_case(256, gen, offset=1), heat),
+            (torch.float32, kp_case(1, gen), heat),
+            (torch.bfloat16, kp_case(256, gen, dtype=torch.bfloat16),
+             {"want_heatmap": False}),
+            (torch.float32, kp_case(256, gen, temperature=1.0), heat),
+            (torch.float32, kp_case(256, gen, logits="peaked"), heat),
+            (torch.float32, kp_case(256, gen, logits="flat"), heat),
+            (torch.float32, kp_case(1, gen, 200, 240, K=2), heat),
+            (torch.bfloat16, kp_case(1, gen, 200, 240, K=2,
+                                     dtype=torch.bfloat16), heat),
+            (torch.float32, kp_case(1, gen, 2, 24576, K=1), heat)):
+        cases.append(("kp_expectation_fused", pd, args, kw))
     return cases
 
 
@@ -287,7 +345,10 @@ def captured_cases(captured: dict) -> list:
 
 def parity(cases: list, worst: dict | None = None) -> dict:
     """Each case's kernel against its plain version; returns the largest
-    |error| per kernel, taken together with ``worst``."""
+    |error| per kernel, taken together with ``worst``.  A warp's output is
+    held to its case's dtype's TOL; the keypoint expectations' outputs each
+    to their own dtype's (value and jacobian are float32 whatever the
+    inputs; the heatmap is in pred's dtype)."""
     worst = dict(worst or {name: 0.0 for name in KERNELS})
     for name, dtype, args, kw in cases:
         wrapper, plain = KERNELS[name][:2]
@@ -295,11 +356,13 @@ def parity(cases: list, worst: dict | None = None) -> dict:
         torch.cuda.synchronize()
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
-        tol = TOL[dtype]
+        tols = []
         err = 0.0
         for g, w in zip(got, want):
             if g is None and w is None:
                 continue
+            tol = TOL[g.dtype if name.startswith("kp") else dtype]
+            tols.append(tol)
             torch.testing.assert_close(g, w, rtol=tol, atol=tol)
             err = max(err, (g.float() - w.float()).abs().max().item())
         if name.startswith("warp") and args[1].float().abs().min() >= 1.5 \
@@ -309,8 +372,10 @@ def parity(cases: list, worst: dict | None = None) -> dict:
         worst[name] = max(worst[name], err)
         tensors = [a for a in args if torch.is_tensor(a)]
         emit("parity", kernel=name, dtypes=[str(a.dtype) for a in tensors],
-             shapes=[list(a.shape) for a in tensors], options=kw,
-             max_abs_err=err, tol=tol)
+             shapes=[list(a.shape) for a in tensors],
+             strides=[list(a.stride()) for a in tensors],
+             temperature=args[2] if name.startswith("kp") else None,
+             options=kw, max_abs_err=err, tol=tols)
     return worst
 
 
@@ -574,7 +639,7 @@ def nbytes(*tensors) -> int:
 
 def timings(captured: dict) -> dict:
     """Phase 6; the warps at the random grid and at ``captured``, the main
-    path's arguments."""
+    path's arguments; the keypoint expectations as ``kp_timings``."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
     wide = captured["warp_wide"]
@@ -611,27 +676,51 @@ def timings(captured: dict) -> dict:
                               8 * res.numel()),    # 4 FMA per value
             "timing": rows,
         }
-    pred, jmap, temp = kp_case(256, gen)
+    return {**out, **kp_timings(gen)}
+
+
+def kp_bound(pred: torch.Tensor, jmap: torch.Tensor, heat: bool):
+    """The keypoint expectation's bound: each input read once, 6 floats
+    written per row (and the heatmap in pred's dtype); ~16 operations per
+    pixel (divide, exp, 7 multiply-adds), one more with the heatmap."""
     B, K, h, w = pred.shape
-    # 5 floats read per pixel, 6 written per row; ~16 operations per
-    # pixel (divide, exp, 7 multiply-adds)
-    n_bytes, n_ops = B * K * (5 * h * w + 6) * 4, 16 * B * K * h * w
-    out["kp_expectation"] = {
-        "ms": device_ms(lambda: kpx.kp_expectation(pred, jmap, temp)),
-        "plain_ms": time_ms(lambda: kpx.kp_expectation_plain(pred, jmap, temp)),
-        "library_ms": None,
-        "bound": bound_ms(n_bytes, n_ops),
+    P = B * K * h * w
+    n_bytes = nbytes(pred, jmap) + 24 * B * K + (nbytes(pred) if heat else 0)
+    return bound_ms(n_bytes, (16 + heat) * P)
+
+
+def kp_timings(gen: torch.Generator) -> dict:
+    """The fused keypoint expectation three ways (float32 with and without
+    the heatmap, bfloat16 with it) and K3 on the same float32 inputs, all
+    in the same turns, each with its own bound."""
+    f32 = kp_case(256, gen)
+    variants = {"f32_heat": (f32, True), "f32_no_heat": (f32, False),
+                "bf16_heat": (kp_case(256, gen, dtype=torch.bfloat16), True)}
+    fused = kpx.kp_expectation_fused
+    fns = {name: graphed(lambda a=args, hm=hm: fused(*a, hm))
+           for name, (args, hm) in variants.items()}
+    fns["kp_expectation_f32"] = graphed(lambda: kpx.kp_expectation(*f32))
+    times = in_turns(fns)
+    timing = {}
+    for name, t in times.items():
+        args, hm = variants.get(name, (f32, False))
+        bound, by = kp_bound(*args[:2], hm)
+        timing[name] = {**t, "bound_ms": bound, "bound_by": by,
+                        "share": bound / t["median"]}
+    return {
+        "kp_expectation": {
+            "ms": times["kp_expectation_f32"]["median"],
+            "plain_ms": time_ms(lambda: kpx.kp_expectation_plain(*f32)),
+            "library_ms": None, "bound": kp_bound(*f32[:2], False)},
+        "kp_expectation_fused": {
+            "ms": times["f32_heat"]["median"],
+            "plain_ms": time_ms(lambda: kpx.kp_expectation_fused_plain(
+                *f32, True)),
+            "library_ms": None, "bound": kp_bound(*f32[:2], True),
+            "timing": timing,
+            "plan": dataclasses.asdict(kpx.fused_launch_plan(
+                *f32[:2], True))},
     }
-    # and the heatmap: one float written and one divide per pixel
-    out["kp_expectation_fused"] = {
-        "ms": device_ms(lambda: kpx.kp_expectation_fused(pred, jmap, temp,
-                                                         True)),
-        "plain_ms": time_ms(lambda: kpx.kp_expectation_fused_plain(
-            pred, jmap, temp, True)),
-        "library_ms": None,
-        "bound": bound_ms(n_bytes + 4 * B * K * h * w, n_ops + B * K * h * w),
-    }
-    return out
 
 
 def main() -> int:
@@ -684,7 +773,7 @@ def main() -> int:
                      "max_abs_err": worst[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-                     **({"timing": t["timing"]} if "timing" in t else {})})
+                     **{k: t[k] for k in ("timing", "plan") if k in t}})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

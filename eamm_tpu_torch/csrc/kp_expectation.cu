@@ -16,18 +16,18 @@
 // What bounds them on an H100: they read 5 values per pixel and write 6
 // floats per row (and, for the heatmap, one value per pixel), so they are
 // bound by their bytes at 3.35 TB/s (the audio head at 256 frames reads
-// 172 MB).  Design against that: one block per row, each input byte read
-// from device memory once (kp_expectation's max pass pulls the row into
-// L1/L2 and the second pass reads it there; kp_expectation_fused keeps the
-// row's scaled logits, then their exponentials, in shared memory, 13 KB
-// for 58x58, so the heatmap store needs no third read), coalesced along the
-// row; the grid coordinates come from the index, not from memory; no
-// padding.  The inputs are read in place through their strides, so a conv
-// output [B, K + 4K, h, w] feeds pred = y[:, :K] and jmap = y[:, K:]
-// uncopied.  The TPU kernel's -1e9 lane and row padding is TPU layout and
-// has no counterpart here.
+// 172 MB).  Both read each input byte from device memory once, coalesced
+// along the row, in place through the strides, so a conv output
+// [B, K + 4K, h, w] feeds pred = y[:, :K] and jmap = y[:, K:] uncopied; no
+// padding.  kp_expectation is one block per row: a max pass pulls the row
+// into L1/L2 and the sums pass reads it there.  kp_expectation_fused is
+// designed for the card's memory system (below its section's head): one
+// pass per row with every plane's loads in flight at once.  The TPU
+// kernel's -1e9 lane and row padding is TPU layout and has no counterpart
+// here.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <float.h>
 #include <math.h>
 
 namespace {
@@ -133,64 +133,293 @@ __global__ void kp_expectation_kernel(
   store_row(s, row, value, jac);
 }
 
-// heat: [B*K, P] contiguous in the prediction's type, or null.
+// ---------------------------------------------------------------- K5
+//
+// kp_expectation_fused, designed for the card's memory system.  Persistent
+// blocks (as many as the card holds at once) each walk rows, so there is
+// no wave tail.  A row goes in ONE pass over its five planes: each step,
+// a thread loads a group of 4 pixels from all five planes at once as 16-
+// or 8-byte streaming vectors (80 bytes a thread in float32, 20 KB a
+// block, 4 blocks an SM), with no barrier between the max and the sums.
+// That needs the max before it is known: each thread keeps a running
+// softmax (its largest logit m and the sums of exp(l - m), rescaled when
+// m rises), and the block combines the threads' sums against the row's
+// max.  (Two groups a thread, or the next row's first loads issued before
+// this row's barriers, were no faster: at 4 blocks an SM the registers
+// spill.  Staging the planes in shared memory instead, by 16-byte
+// cp.async into a ring of chunks issued ahead across row ends, was 1.2 to
+// 4.4 times slower on an H100: each chunk costs a barrier and a pass
+// through shared memory, and the ring cuts the blocks an SM holds.)  The
+// launch, blocks and shared memory, is ops/kp_expectation.py fused_plan's.
+// The grid coordinates come from per-block tables with a (y, x) walk and
+// no division per pixel.  With the heatmap, the row's logits stay in
+// shared memory and the heatmap is written from there in 16- or
+// 8-byte vectors.  Pixels before the first aligned group and after the
+// last one, or every pixel of a row whose five planes are not aligned
+// alike, go one at a time.
+
+constexpr int kGroup = 4;           // pixels per vector access
+constexpr int kFusedMinBlocks = 4;  // blocks per SM the registers must allow
+constexpr int kMaxSmem = 232448;    // a block's opt-in maximum on sm_90
+constexpr int kFusedStaticSmem = (kWarps + kWarps * kSums) * (int)sizeof(float);
+constexpr int kFusedSmemBudget = kMaxSmem - kFusedStaticSmem;
+
+// kGroup values of T in one access, as loaded
+template <typename T> struct Vec;
+template <> struct Vec<float> { using type = float4; };
+template <> struct Vec<__nv_bfloat16> { using type = uint2; };
+
+// kGroup values at an address aligned to kGroup values; the inputs are
+// read once and the heatmap written once (evict first)
+template <typename T>
+__device__ __forceinline__ typename Vec<T>::type load_group(const T* p) {
+  return __ldcs(reinterpret_cast<const typename Vec<T>::type*>(p));
+}
+__device__ __forceinline__ void unpack(float4 q, float (&v)[kGroup]) {
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void unpack(uint2 q, float (&v)[kGroup]) {
+  v[0] = __uint_as_float(q.x << 16);
+  v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+__device__ __forceinline__ void store_group(float* p, const float (&v)[kGroup]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+__device__ __forceinline__ void store_group(__nv_bfloat16* p,
+                                            const float (&v)[kGroup]) {
+  __stcs(reinterpret_cast<uint2*>(p),
+         make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3])));
+}
+
+// The pixels before the first one at an address aligned for a group.
+template <typename T>
+__device__ __forceinline__ int group_head(const T* p) {
+  const unsigned long long i = reinterpret_cast<unsigned long long>(p) / sizeof(T);
+  return (int)((kGroup - i % kGroup) % kGroup);
+}
+
+// Pixel i of an n-pixel axis, 2 i / (n - 1) - 1, as K3 computes it, from
+// the block's table where there is one.
+__device__ __forceinline__ float axis_coord(int i, int n) {
+  return 2.f * __fdiv_rn((float)i, (float)(n - 1)) - 1.f;
+}
+__device__ __forceinline__ float coord(const float* table, int i, int n) {
+  return table != nullptr ? table[i] : axis_coord(i, n);
+}
+
+// A running softmax over the pixels one thread has seen: m, the largest
+// logit so far (-FLT_MAX before any, so that a -inf logit adds 0), and
+// the sums of e = exp(l - m) times 1, gx, gy and the four maps, rescaled
+// whenever m rises.
+struct Online {
+  float m = -FLT_MAX;
+  float s[kSums] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+
+  __device__ __forceinline__ void raise(float top) {
+    if (top > m) {
+      const float f = expf(m - top);
+#pragma unroll
+      for (int i = 0; i < kSums; ++i) s[i] *= f;
+      m = top;
+    }
+  }
+  __device__ __forceinline__ void add(float l, float gx, float gy, float j0,
+                                      float j1, float j2, float j3) {
+    const float e = expf(l - m);
+    s[0] += e;
+    s[1] += e * gx;
+    s[2] += e * gy;
+    s[3] += e * j0;
+    s[4] += e * j1;
+    s[5] += e * j2;
+    s[6] += e * j3;
+  }
+};
+
+// heat: [B*K, P] contiguous in the prediction's type, or null.  Dynamic
+// shared memory: the row's P logits when heat is wanted, then, with
+// `tables`, gx[w] and gy[h].
 template <typename TP, typename TJ>
-__global__ void kp_expectation_fused_kernel(
+__global__ void __launch_bounds__(kThreads, kFusedMinBlocks)
+kp_expectation_fused_kernel(
     const TP* __restrict__ pred, long long pred_b, long long pred_k,
     const TJ* __restrict__ jmap, long long jmap_b, long long jmap_k,
     long long jmap_f, float* __restrict__ value, float* __restrict__ jac,
-    TP* __restrict__ heat, int K, int h, int w, float temp) {
-  extern __shared__ float logits[];  // the row's P scaled logits, then e
+    TP* __restrict__ heat, int rows, int K, int h, int w, float temp,
+    bool tables) {
+  extern __shared__ float smem[];
   __shared__ float scratch[kWarps];
   __shared__ float partial[kWarps][kSums];
-  const int row = blockIdx.x;
-  const int b = row / K, k = row % K;
   const int P = h * w;
-  const TP* pr = pred + b * pred_b + k * pred_k;
-  const TJ* jm = jmap + b * jmap_b + k * jmap_k;
-
-  // each thread reads back only the entries it wrote itself
-  float m = -INFINITY;
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    const float l = __fdiv_rn(to_float(pr[p]), temp);
-    logits[p] = l;
-    m = fmaxf(m, l);
+  float* const logits = smem;
+  float* const gx = tables ? smem + (heat != nullptr ? P : 0) : nullptr;
+  float* const gy = tables ? gx + w : nullptr;
+  if (tables) {
+    for (int i = threadIdx.x; i < w; i += kThreads) gx[i] = axis_coord(i, w);
+    for (int i = threadIdx.x; i < h; i += kThreads) gy[i] = axis_coord(i, h);
+    __syncthreads();
   }
-  m = block_max(m, scratch);
+  // p / w == __umulhi(p, magic) for p * w < 2^32
+  const unsigned magic = 0xffffffffu / (unsigned)w + 1u;
 
-  float s[kSums] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    const float e = expf(logits[p] - m);
-    logits[p] = e;
-    accumulate(s, e, p, h, w, jm, jmap_f);
-  }
-  block_sums(s, partial);
-  store_row(s, row, value, jac);
-  if (heat != nullptr) {
-    TP* hr = heat + (long long)row * P;
-    for (int p = threadIdx.x; p < P; p += kThreads)
-      from_float(hr + p, __fdiv_rn(logits[p], s[0]));
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const int b = row / K, k = row - b * K;
+    const TP* pr = pred + b * pred_b + k * pred_k;
+    const TJ* jm = jmap + b * jmap_b + k * jmap_k;
+    // one head for all five planes, else every pixel goes one at a time
+    const int head = group_head(pr);
+    bool grouped = head < P;
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      grouped = grouped && group_head(jm + f * jmap_f) == head;
+    const int first = grouped ? head : P;
+    const int groups = (P - first) / kGroup;
+    const int after = first + groups * kGroup;  // the first pixel past them
+
+    Online acc;
+    for (int g = threadIdx.x; g < groups; g += kThreads) {
+      const int p0 = first + g * kGroup;
+      float l[kGroup], j[4][kGroup];
+      unpack(load_group(pr + p0), l);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) unpack(load_group(jm + f * jmap_f + p0), j[f]);
+      float top = -FLT_MAX;
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        l[i] = __fdiv_rn(l[i], temp);
+        top = fmaxf(top, l[i]);
+      }
+      if (heat != nullptr) {
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) logits[p0 + i] = l[i];
+      }
+      acc.raise(top);
+      int y = (int)__umulhi((unsigned)p0, magic), x = p0 - y * w;
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        acc.add(l[i], coord(gx, x, w), coord(gy, y, h), j[0][i], j[1][i],
+                j[2][i], j[3][i]);
+        if (++x == w) {
+          x = 0;
+          ++y;
+        }
+      }
+    }
+    const int loose = first + P - after;
+    for (int q = threadIdx.x; q < loose; q += kThreads) {
+      const int p = q < first ? q : after + q - first;
+      const float l = __fdiv_rn(to_float(pr[p]), temp);
+      if (heat != nullptr) logits[p] = l;
+      const int y = (int)__umulhi((unsigned)p, magic), x = p - y * w;
+      acc.raise(l);
+      acc.add(l, coord(gx, x, w), coord(gy, y, h), to_float(jm[p]),
+              to_float(jm[jmap_f + p]), to_float(jm[2 * jmap_f + p]),
+              to_float(jm[3 * jmap_f + p]));
+    }
+
+    // the threads' sums against the row's max, added in warp order
+    const float m = block_max(acc.m, scratch);
+    const float f = expf(acc.m - m);
+#pragma unroll
+    for (int i = 0; i < kSums; ++i) acc.s[i] *= f;
+    block_sums(acc.s, partial);
+    store_row(acc.s, row, value, jac);
+
+    if (heat != nullptr) {
+      const float inv = 1.f / acc.s[0];
+      TP* hr = heat + (long long)row * P;
+      const int hfirst = min(group_head(hr), P);
+      const int hgroups = (P - hfirst) / kGroup;
+      const int hafter = hfirst + hgroups * kGroup;
+      for (int g = threadIdx.x; g < hgroups; g += kThreads) {
+        const int p0 = hfirst + g * kGroup;
+        float v[kGroup];
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) v[i] = expf(logits[p0 + i] - m) * inv;
+        store_group(hr + p0, v);
+      }
+      const int hloose = hfirst + P - hafter;
+      for (int q = threadIdx.x; q < hloose; q += kThreads) {
+        const int p = q < hfirst ? q : hafter + q - hfirst;
+        from_float(hr + p, expf(logits[p] - m) * inv);
+      }
+      __syncthreads();  // every read of the logits before the next row's writes
+    }
   }
 }
 
-template <typename TP, typename TJ>
-int launch_fused(const void* pred, long long pred_b, long long pred_k,
-                 const void* jmap, long long jmap_b, long long jmap_k,
-                 long long jmap_f, void* value, void* jac, void* heat, int B,
-                 int K, int h, int w, float temp, cudaStream_t stream) {
-  const size_t smem = (size_t)h * w * sizeof(float);
-  auto kernel = kp_expectation_fused_kernel<TP, TJ>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+// The arguments of eamm_kp_expectation_fused and
+// eamm_kp_expectation_fused_resident.
+struct FusedArgs {
+  const void* pred;
+  long long pred_b, pred_k;
+  const void* jmap;
+  long long jmap_b, jmap_k, jmap_f;
+  void *value, *jac, *heat;
+  int B, K, h, w;
+  float temp;
+  int smem, tables, blocks;
+  cudaStream_t stream;
+};
+
+struct LaunchFused {
+  template <typename TP, typename TJ>
+  static int run(const FusedArgs& a, int*) {
+    if (a.smem < 0 || a.smem > kFusedSmemBudget || a.blocks < 1)
+      return (int)cudaErrorInvalidValue;
+    kp_expectation_fused_kernel<TP, TJ><<<a.blocks, kThreads, a.smem,
+                                          a.stream>>>(
+        static_cast<const TP*>(a.pred), a.pred_b, a.pred_k,
+        static_cast<const TJ*>(a.jmap), a.jmap_b, a.jmap_k, a.jmap_f,
+        static_cast<float*>(a.value), static_cast<float*>(a.jac),
+        static_cast<TP*>(a.heat), a.B * a.K, a.K, a.h, a.w, a.temp,
+        a.tables != 0);
+    return (int)cudaGetLastError();
   }
-  kernel<<<B * K, kThreads, smem, stream>>>(
-      static_cast<const TP*>(pred), pred_b, pred_k,
-      static_cast<const TJ*>(jmap), jmap_b, jmap_k, jmap_f,
-      static_cast<float*>(value), static_cast<float*>(jac),
-      static_cast<TP*>(heat), K, h, w, temp);
-  return (int)cudaGetLastError();
+};
+
+// The blocks the card holds at once with a.smem bytes of dynamic shared
+// memory each, into *out; lets the kernel take up to kFusedSmemBudget.
+struct ResidentFused {
+  template <typename TP, typename TJ>
+  static int run(const FusedArgs& a, int* out) {
+    auto kernel = kp_expectation_fused_kernel<TP, TJ>;
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t err;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             kFusedSmemBudget)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      device)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kThreads, a.smem)) != cudaSuccess)
+      return (int)err;
+    *out = sms * per_sm;
+    return 0;
+  }
+};
+
+// Op::run<TP, TJ> for pdtype and jdtype (0 float32, 1 bfloat16).
+template <typename Op>
+int by_dtype(int pdtype, int jdtype, const FusedArgs& a, int* out) {
+  if (pdtype == 0 && jdtype == 0) return Op::template run<float, float>(a, out);
+  if (pdtype == 0 && jdtype == 1)
+    return Op::template run<float, __nv_bfloat16>(a, out);
+  if (pdtype == 1 && jdtype == 0)
+    return Op::template run<__nv_bfloat16, float>(a, out);
+  if (pdtype == 1 && jdtype == 1)
+    return Op::template run<__nv_bfloat16, __nv_bfloat16>(a, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -214,31 +443,32 @@ extern "C" int eamm_kp_expectation(const void* pred, long long pred_b,
 
 // As eamm_kp_expectation, with pdtype and jdtype (0 float32, 1 bfloat16) for
 // pred and jmap, and heat: null, or [B*K*h*w] in pred's type for the
-// normalized heatmap.  h*w floats of dynamic shared memory per block.
+// normalized heatmap.  The launch as ops/kp_expectation.py fused_plan
+// makes it: blocks persistent blocks of smem bytes of dynamic shared memory
+// (the row's float32 logits when heat is wanted, then, if tables, gx[w] and
+// gy[h]); eamm_kp_expectation_fused_resident at that size must have been
+// called first on this device.
 extern "C" int eamm_kp_expectation_fused(
     const void* pred, int pdtype, long long pred_b, long long pred_k,
     const void* jmap, int jdtype, long long jmap_b, long long jmap_k,
     long long jmap_f, void* value, void* jac, void* heat, int B, int K, int h,
-    int w, float temp, void* stream) {
-  if ((pdtype != 0 && pdtype != 1) || (jdtype != 0 && jdtype != 1))
-    return (int)cudaErrorInvalidValue;
+    int w, float temp, int smem, int tables, int blocks, void* stream) {
   cudaGetLastError();  // clear any earlier error of this runtime
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pdtype == 0 && jdtype == 0)
-    return launch_fused<float, float>(pred, pred_b, pred_k, jmap, jmap_b,
-                                      jmap_k, jmap_f, value, jac, heat, B, K,
-                                      h, w, temp, s);
-  if (pdtype == 0)
-    return launch_fused<float, __nv_bfloat16>(pred, pred_b, pred_k, jmap,
-                                              jmap_b, jmap_k, jmap_f, value,
-                                              jac, heat, B, K, h, w, temp, s);
-  if (jdtype == 0)
-    return launch_fused<__nv_bfloat16, float>(pred, pred_b, pred_k, jmap,
-                                              jmap_b, jmap_k, jmap_f, value,
-                                              jac, heat, B, K, h, w, temp, s);
-  return launch_fused<__nv_bfloat16, __nv_bfloat16>(
-      pred, pred_b, pred_k, jmap, jmap_b, jmap_k, jmap_f, value, jac, heat, B,
-      K, h, w, temp, s);
+  const FusedArgs a{pred,  pred_b, pred_k, jmap,   jmap_b, jmap_k,
+                    jmap_f, value, jac,    heat,   B,      K,
+                    h,     w,      temp,   smem,   tables, blocks,
+                    static_cast<cudaStream_t>(stream)};
+  return by_dtype<LaunchFused>(pdtype, jdtype, a, nullptr);
+}
+
+// The fused kernel's blocks that the current device holds at once with
+// smem bytes of dynamic shared memory each, for pdtype and jdtype, into
+// *resident.  Returns a cudaError_t.
+extern "C" int eamm_kp_expectation_fused_resident(int pdtype, int jdtype,
+                                                  int smem, int* resident) {
+  FusedArgs a{};
+  a.smem = smem;
+  return by_dtype<ResidentFused>(pdtype, jdtype, a, resident);
 }
 
 extern "C" const char* eamm_error_string(int code) {

@@ -19,6 +19,9 @@ raises.  Each wrapper counts its launches in its ``launches`` attribute.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+from typing import Callable
 
 import torch
 
@@ -86,8 +89,80 @@ def kp_expectation(pred: torch.Tensor, jmap: torch.Tensor,
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the row's logits stay in shared memory: at most 192 KB of the 227 KB
+# the largest row the fused kernel takes: with the heatmap, its float32
+# logits fill 192 KB of a block's 227 KB of shared memory
 MAX_FUSED_PIXELS = 48 * 1024
+# the dynamic shared memory a block may take: sm_90's 232448 bytes less
+# the kernel's static scratch (csrc/kp_expectation.cu kFusedSmemBudget)
+FUSED_SMEM_BUDGET = 232448 - 4 * (8 + 8 * 7)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """How ``kp_expectation_fused`` launches: dynamic shared memory per
+    block, whether it holds the coordinate tables gx[w], gy[h], the blocks
+    the card holds at once at that size, the blocks launched and the most
+    rows one block walks."""
+    smem_bytes: int
+    tables: bool
+    resident: int
+    blocks: int
+    rows_per_block: int
+
+
+def fused_plan(B: int, K: int, h: int, w: int, want_heatmap: bool,
+               resident: Callable[[int], int]) -> FusedPlan:
+    """The fused kernel's launch for B*K rows of h*w pixels: the row's
+    float32 logits in shared memory when the heatmap is wanted, the
+    coordinate tables where they fit beside them, and persistent blocks,
+    no more than ``resident(smem_bytes)`` (the blocks the card holds at
+    once at that size), balanced so that each walks the same number of
+    rows, give or take one.  Raises ``ValueError`` past
+    ``MAX_FUSED_PIXELS``."""
+    if h * w > MAX_FUSED_PIXELS:
+        raise ValueError(f"kp_expectation_fused: {h}x{w} pixels is more "
+                         f"than MAX_FUSED_PIXELS ({MAX_FUSED_PIXELS}), the "
+                         "largest row the kernel takes")
+    logits = 4 * h * w if want_heatmap else 0
+    tables = logits + 4 * (h + w) <= FUSED_SMEM_BUDGET
+    smem = logits + 4 * (h + w) if tables else logits
+    held = resident(smem)
+    rows_per_block = -(-B * K // held)
+    return FusedPlan(smem_bytes=smem, tables=tables, resident=held,
+                     blocks=-(-B * K // rows_per_block),
+                     rows_per_block=rows_per_block)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_resident(device: torch.device, pdtype: int, jdtype: int,
+                    smem: int) -> int:
+    """The fused kernel's blocks that ``device`` holds at once with
+    ``smem`` bytes of dynamic shared memory each, asked once per device,
+    dtypes and size, so that a launch (or a CUDA graph's capture of it)
+    makes no other runtime call; the query also lets the kernel take that
+    much shared memory."""
+    lib = kernels.library("kp_expectation")
+    fn = lib.eamm_kp_expectation_fused_resident
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        kernels.check(lib, fn(pdtype, jdtype, smem, ctypes.byref(out)),
+                      "kp_expectation_fused occupancy")
+    if out.value < 1:
+        raise RuntimeError(f"kp_expectation_fused: no block of {smem} bytes "
+                           f"of shared memory fits on {device}")
+    return out.value
+
+
+def fused_launch_plan(prediction: torch.Tensor, jmap: torch.Tensor,
+                      want_heatmap: bool) -> FusedPlan:
+    """The plan ``kp_expectation_fused`` launches with for these CUDA
+    tensors."""
+    B, K, h, w = prediction.shape
+    return fused_plan(B, K, h, w, want_heatmap, functools.partial(
+        _fused_resident, prediction.device, _DTYPES[prediction.dtype],
+        _DTYPES[jmap.dtype]))
 
 
 def kp_expectation_fused_plain(prediction: torch.Tensor, jmap: torch.Tensor,
@@ -105,9 +180,10 @@ def kp_expectation_fused(prediction: torch.Tensor, jmap: torch.Tensor,
                          temperature: float, want_heatmap: bool = False):
     """(value [B,K,2] f32, jacobian [B,K,2,2] f32, heatmap [B,K,h,w] in the
     prediction's dtype or None) from prediction [B,K,h,w] and jmap
-    [B,K,4,h,w], each float32 or bfloat16 (read as float32).  The TPU
-    kernel's row and lane padding with -1e9 logits is TPU layout and has
-    no counterpart here."""
+    [B,K,4,h,w], each float32 or bfloat16 (read as float32).  The kernel
+    runs persistent blocks that walk the rows, one pass over each row's
+    five planes (``fused_plan``).  The TPU kernel's row and lane padding
+    with -1e9 logits is TPU layout and has no counterpart here."""
     _check(prediction, jmap)
     if prediction.device.type == "cpu":
         return kp_expectation_fused_plain(prediction, jmap, temperature,
@@ -125,10 +201,10 @@ def kp_expectation_fused(prediction: torch.Tensor, jmap: torch.Tensor,
         if t.stride(-1) != 1 or t.stride(-2) != w:
             raise ValueError(f"kp_expectation_fused: each {name} row of h*w "
                              f"must be contiguous, strides {t.stride()}")
-    if B * K == 0 or h < 2 or w < 2 or h * w > MAX_FUSED_PIXELS:
+    if B * K == 0 or h < 2 or w < 2:
         raise ValueError(f"kp_expectation_fused: shape "
-                         f"{tuple(prediction.shape)} needs rows, h, w >= 2 "
-                         f"and h*w <= {MAX_FUSED_PIXELS}")
+                         f"{tuple(prediction.shape)} needs rows and h, w >= 2")
+    plan = fused_launch_plan(prediction, jmap, want_heatmap)
     dev = prediction.device
     value = torch.empty((B, K, 2), dtype=torch.float32, device=dev)
     jac = torch.empty((B, K, 2, 2), dtype=torch.float32, device=dev)
@@ -139,7 +215,8 @@ def kp_expectation_fused(prediction: torch.Tensor, jmap: torch.Tensor,
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 2
                    + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 3
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     code = fn(prediction.data_ptr(), _DTYPES[prediction.dtype],
               prediction.stride(0), prediction.stride(1),
@@ -147,7 +224,8 @@ def kp_expectation_fused(prediction: torch.Tensor, jmap: torch.Tensor,
               jmap.stride(0), jmap.stride(1), jmap.stride(2),
               value.data_ptr(), jac.data_ptr(),
               heat.data_ptr() if heat is not None else None,
-              B, K, h, w, float(temperature),
+              B, K, h, w, float(temperature), plan.smem_bytes,
+              int(plan.tables), plan.blocks,
               torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(lib, code, "kp_expectation_fused")
     kp_expectation_fused.launches += 1

@@ -152,11 +152,13 @@ def test_shared_warp_plain_matches_pallas(case, align_corners):
 @pytest.mark.parametrize("shape,want_heatmap,dtype",
                          [((3, 10, 58, 58), True, np.float32),
                           ((3, 2, 58, 58), False, np.float32),
-                          ((2, 3, 13, 17), True, "bfloat16")])
+                          ((2, 3, 13, 17), True, "bfloat16"),
+                          ((2, 3, 13, 17), True, "bfloat16 pred")])
 def test_kp_expectation_fused_plain_matches_pallas(shape, want_heatmap, dtype):
     """value and jacobian within 1e-5, the float32 heatmap within 1e-6
     (tests/test_kp_pallas.py's bounds); a bfloat16 heatmap within one
-    bfloat16 rounding (rtol 1e-2)."""
+    bfloat16 rounding (rtol 1e-2).  "bfloat16 pred": a bfloat16 prediction
+    with a float32 jmap."""
     rng = np.random.RandomState(2)
     B, K, h, w = shape
     pred = rng.randn(B, K, h, w).astype(np.float32)
@@ -166,6 +168,8 @@ def test_kp_expectation_fused_plain_matches_pallas(shape, want_heatmap, dtype):
     if dtype == "bfloat16":
         jp, jj = jp.astype(jnp.bfloat16), jj.astype(jnp.bfloat16)
         tp, tj = tp.bfloat16(), tj.bfloat16()
+    if dtype == "bfloat16 pred":
+        jp, tp = jp.astype(jnp.bfloat16), tp.bfloat16()
     ref = kp_pallas.kp_expectation_fused(jp, jj, 0.1,
                                          want_heatmap=want_heatmap,
                                          interpret=True)
@@ -174,13 +178,56 @@ def test_kp_expectation_fused_plain_matches_pallas(shape, want_heatmap, dtype):
     np.testing.assert_allclose(jac.numpy(), np.asarray(ref[1]), atol=ATOL)
     if not want_heatmap:
         assert heat is None and ref[2] is None
-    elif dtype == "bfloat16":
+    elif dtype != np.float32:
         assert heat.dtype == torch.bfloat16
         np.testing.assert_allclose(heat.float().numpy(),
                                    np.asarray(ref[2].astype(jnp.float32)),
                                    rtol=1e-2, atol=1e-6)
     else:
         np.testing.assert_allclose(heat.numpy(), np.asarray(ref[2]), atol=1e-6)
+
+
+def test_kp_fused_launch_plan():
+    """The fused kernel's launch: the row's float32 logits in shared memory
+    when the heatmap is wanted (in either dtype), the coordinate tables
+    where they fit beside them, persistent blocks balanced over the rows
+    (2560 rows over 528 resident blocks: 512 blocks of 5 rows); a row past
+    MAX_FUSED_PIXELS is refused before the card is asked anything."""
+    asked = []
+
+    def resident(n):
+        asked.append(n)
+        return n_resident
+
+    n_resident = 528
+    plan = kpx.fused_plan(256, 10, 58, 58, True, resident)
+    assert plan == kpx.FusedPlan(smem_bytes=4 * (58 * 58 + 58 + 58),
+                                 tables=True, resident=528, blocks=512,
+                                 rows_per_block=5)
+    assert asked == [plan.smem_bytes]
+    assert kpx.fused_plan(256, 10, 58, 58, False,
+                          resident).smem_bytes == 4 * (58 + 58)
+    plan = kpx.fused_plan(1, 10, 58, 58, True, resident)
+    assert (plan.blocks, plan.rows_per_block) == (10, 1)   # fewer rows
+    plan = kpx.fused_plan(3, 2, 13, 17, True, resident)
+    assert (plan.smem_bytes, plan.blocks, plan.rows_per_block) == (
+        4 * (221 + 30), 6, 1)
+    n_resident = 132
+    plan = kpx.fused_plan(1, 2, 192, 256, True, resident)
+    assert 192 * 256 == kpx.MAX_FUSED_PIXELS
+    assert plan.smem_bytes == 4 * (192 * 256 + 192 + 256) \
+        <= kpx.FUSED_SMEM_BUDGET and plan.tables
+    assert (plan.blocks, plan.rows_per_block) == (2, 1)
+    plan = kpx.fused_plan(300, 10, 192, 256, True, resident)
+    assert (plan.blocks, plan.rows_per_block) == (131, 23)
+    # the largest row of an extreme aspect: the logits fit, the tables not
+    plan = kpx.fused_plan(1, 1, 2, 24576, True, resident)
+    assert (plan.smem_bytes, plan.tables) == (4 * 2 * 24576, False)
+    asked.clear()
+    for heat in (True, False):
+        with pytest.raises(ValueError, match="MAX_FUSED_PIXELS"):
+            kpx.fused_plan(1, 2, 192, 257, heat, resident)
+    assert asked == []
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take():
