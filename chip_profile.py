@@ -12,15 +12,19 @@ so the render runs the emotion heads per timestep but not the trunk):
 1. ``stages``: host-clock seconds of the pipeline's stages, each ended by
    ``torch.cuda.synchronize()``: host preparation and upload, MFCC,
    ``clip_keypoints`` (with the emotion stage, when emotional),
-   ``decode_clip`` and the copy to the host; three repetitions; and, once,
+   ``decode_clip`` and the copy to the host (into pinned memory on the
+   copy stream, as the renders deliver); three repetitions; and, once,
    the seconds of ``prepare_emotion``.
-2. ``profile``: one ``render_uint8`` call under ``torch.profiler`` (CPU and
+2. ``host_copy``: a 49 MB clip's copy from the card into pinned memory,
+   and from there into fresh pageable arrays by numpy and by PyTorch, in
+   turns (``host_copies``).
+3. ``profile``: one ``render_uint8`` call under ``torch.profiler`` (CPU and
    CUDA activity): the wall seconds, the summed device time of all
    kernels and copies, the operators whose own launches took the most
    device time (self time, so nested operators are not counted twice), and
    the kernels that took the most.
 
-Each prints one JSON line, naming its render.  Without a CUDA device it exits non-zero before
+Each prints JSON lines, naming the render.  Without a CUDA device it exits non-zero before
 printing any result.
 """
 from __future__ import annotations
@@ -56,7 +60,7 @@ def stages(pipe: EammPipeline, clip, handle=None) -> dict:
         (kp_norm, kp_s), t_kp = timed(
             lambda: pipe.clip_keypoints(source, windows, pose, emotion))
         frames, t_dec = timed(lambda: pipe.decode_clip(source, kp_norm, kp_s))
-        _, t_host = timed(lambda: frames[:T].cpu().numpy())
+        _, t_host = timed(lambda: pipe.link.fetch((frames,), T))
     return {"frames": T, "prepare_s": t_prep, "mfcc_s": t_mfcc,
             "keypoints_s": t_kp, "decode_s": t_dec, "to_host_s": t_host}
 
@@ -88,6 +92,31 @@ def profile(pipe: EammPipeline, clip, handle=None) -> dict:
             "ops": rows(ops), "kernels": rows(kernels)}
 
 
+def host_copies(rounds: int = 4) -> dict:
+    """Milliseconds a 10 s clip's frames (249 x 256 x 256 x 3 uint8, 49 MB)
+    take from the card into a reused pinned staging buffer, and from there
+    into a fresh pageable array, each array kept as a caller keeps its
+    results: numpy's one-thread copy and PyTorch's threaded copy (the one
+    ``HostFetch.result`` makes), in turns."""
+    shape = (249, 256, 256, 3)
+    src = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda")
+    pinned = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+    held = []
+    out = {"card_to_pinned_ms": [], "numpy_copy_ms": [], "torch_copy_ms": []}
+    for _ in range(rounds):
+        for key, fn in (
+                ("card_to_pinned_ms",
+                 lambda: pinned.copy_(src, non_blocking=True)),
+                ("numpy_copy_ms", lambda: pinned.numpy().copy()),
+                ("torch_copy_ms", lambda: torch.empty(
+                    shape, dtype=torch.uint8).copy_(pinned))):
+            result, seconds = timed(fn)
+            if key != "card_to_pinned_ms":
+                held.append(result)
+            out[key].append(seconds * 1e3)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; nothing was run", file=sys.stderr)
@@ -104,6 +133,8 @@ def main() -> int:
     handle, t_handle = timed(lambda: pipe.prepare_emotion(video))
     print(json.dumps({"phase": "prepare_emotion", "frames": EMOTION_FRAMES,
                       "seconds": t_handle}), flush=True)
+    print(json.dumps({"phase": "host_copy", "threads": torch.get_num_threads(),
+                      **host_copies()}), flush=True)
     clip = clip_inputs(10.0, 3)
     for render, h in (("neutral", None), ("emotional handle", handle)):
         for rep in range(3):

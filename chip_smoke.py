@@ -34,7 +34,8 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    expectations' value and jacobian (float32 from any input dtype) at
    float32's.  After phase 5, the wide and
    narrow warps again at the main path's own arguments, captured from the
-   first decode chunk of a neutral 10 s request.
+   first decode chunk of a neutral 10 s request and of the batched render
+   of 4 identities (4 sources, Bi = 4).
 4. CPU vs card: the same seeded weights and clip rendered by the port on
    the CPU (plain versions) and on the card (kernels) in float32, neutral
    at TINY_CONFIG widths and emotional (5 emotion frames) at
@@ -55,6 +56,27 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
      bound where they do not (1 s); one 4 s request with the map head,
      whose keypoints launch the keypoint expectation once more; the 4 s
      clip in float32, bfloat16 within mean 0.75 and p99 3 counts of it;
+   - yuv420 delivery: a neutral 10 s ``render_yuv420`` and an emotional
+     4 s cold render whose frames are uploaded as packed planes, each
+     turned back into RGB within mean 5e-3 and max 0.2 (in [0, 1]) of the
+     rgb render;
+   - overlapped segments: 10 s neutral rgb, neutral yuv420 and emotional
+     (raw frames, the split keypoint stage) with ``overlap_segments`` 4,
+     each bitwise equal to one segment, with both wall times;
+   - ``render_stream`` over 4 segments of a 10 s clip: seconds to the
+     first and the last payload, bitwise equal to ``render_uint8``;
+   - three 10 s renders held at once: each result pageable, the caching
+     host allocator's page-locked bytes after each (not growing);
+   - unbounded chunks (``segment_frames`` 64): 4 s neutral and emotional
+     (handle, 50 frames < T) streams in float32 within 1 count of the
+     whole clip; 10 s and 60 s neutral streams in bfloat16, the 60 s peak
+     memory within 5% of the 10 s one, beside the whole 10 s clip's, and
+     the 10 s stream's difference from that clip; with
+     ``stream_policy_frames`` 250, the route a 4 s and a 20 s
+     ``render_uint8`` took (whole clip, then chunks);
+   - batched: ``render_batch_uint8`` of 4 identities of 4, 3.5, 3 and 2 s,
+     in float32 each within 1 count of its own ``render_uint8``; in
+     bfloat16 ``render_batch_yuv420`` in 2 segments bitwise equal to one;
    - entry points: the shared warp and the fused keypoint expectation,
      which no model calls, once each at the shapes of phase 6.
    Peak device memory of each path.
@@ -77,7 +99,8 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    The plain versions are timed eager.
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line
-(with the path whose launches each row counts), and last
+(with the path whose launches each row counts, and the launches on every
+request by path), and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -96,6 +119,7 @@ from eamm_tpu_torch import config as cfg
 from eamm_tpu_torch import kernels
 from eamm_tpu_torch.infer import EammPipeline, PipelineOptions
 from eamm_tpu_torch.infer.pipeline import reset_parameters
+from eamm_tpu_torch.ops.colorspace import yuv420_to_rgb
 from eamm_tpu_torch.ops import kp_expectation as kpx
 from eamm_tpu_torch.ops import warp_cuda
 
@@ -159,6 +183,11 @@ F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 REQUEST_SECONDS = (1.0, 4.0, 10.0)
 EMOTION_FRAMES = 50
+YUV_BOUND = (5e-3, 0.2)         # mean and max |difference| in [0, 1]
+STREAM_FRAMES = 64              # segment_frames of the unbounded route
+POLICY_FRAMES = 250             # stream_policy_frames of the policy check
+BATCH_SECONDS = (4.0, 3.5, 3.0, 2.0)
+REQUESTS: list = []             # every request line, in order
 
 # name -> (wrapper, plain version, source, TPU kernel it replaces)
 KERNELS = {
@@ -215,13 +244,6 @@ def emotion_clip(frames: int, seed: int) -> np.ndarray:
     """Seeded float32 emotion frames [frames, 256, 256, 3] in [0, 1]."""
     return np.random.RandomState(seed).rand(frames, 256, 256, 3).astype(
         np.float32)
-
-
-def check_frames(frames: np.ndarray, seconds: float) -> None:
-    if frames.dtype != np.uint8 or frames.shape[1:] != (256, 256, 3) \
-            or frames.shape[0] < 20 * seconds or frames.std() == 0:
-        raise AssertionError(f"bad frames {frames.shape} {frames.dtype} "
-                             f"std {frames.std()}")
 
 
 def uint8_diff(a: np.ndarray, b: np.ndarray) -> dict:
@@ -409,10 +431,34 @@ def cpu_vs_device(device: str = "cuda", seed: int = 0,
 
 # ---------------------------------------------------------------- phase 5
 
-def drive(path: str, must: tuple, fn, seconds: float | None = None):
+def frames_out(out) -> int:
+    """Frames in a render's output: uint8 RGB [..., 256, 256, 3], or
+    yuv420 planes (Y [..., 256, 256], U and V [..., 128, 128]); raises
+    unless it is well formed and not constant."""
+    if isinstance(out, tuple):
+        y, u, v = out
+        ok = (y.dtype == u.dtype == v.dtype == np.uint8
+              and y.shape[-2:] == (256, 256)
+              and u.shape == v.shape == y.shape[:-2] + (128, 128))
+        lead = y.shape[:-2]
+    else:
+        y = out
+        ok = out.dtype == np.uint8 and out.shape[-3:] == (256, 256, 3)
+        lead = out.shape[:-3]
+    if not ok or y.std() == 0:
+        raise AssertionError(f"bad output {[np.shape(a) for a in out]}"
+                             if isinstance(out, tuple) else
+                             f"bad frames {out.shape} {out.dtype}")
+    return int(np.prod(lead))
+
+
+def drive(path: str, must: tuple, fn, seconds: float | None = None,
+          info: dict | None = None):
     """Run ``fn`` with every launch count zeroed just before and read just
-    after; raise unless each kernel in ``must`` launched.  Returns (its
-    result, the counts)."""
+    after; raise unless each kernel in ``must`` launched.  With
+    ``seconds`` (the audio rendered), check the frames and report them and
+    the fps; ``info`` (which ``fn`` may fill) joins the line.  Returns
+    (its result, the counts)."""
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -422,9 +468,12 @@ def drive(path: str, must: tuple, fn, seconds: float | None = None):
     launches = launch_counts()
     fields = {"path": path, "wall_seconds": wall, "launches": launches}
     if seconds is not None:
-        check_frames(out, seconds)
-        fields.update(clip_seconds=seconds, frames=int(out.shape[0]),
-                      fps=out.shape[0] / wall)
+        frames = frames_out(out)
+        if frames < 20 * seconds:
+            raise AssertionError(f"{path}: {frames} frames for {seconds} s")
+        fields.update(clip_seconds=seconds, frames=frames, fps=frames / wall)
+    fields.update(info or {})
+    REQUESTS.append(fields)
     emit("request", **fields)
     missing = [name for name in must if launches[name] <= 0]
     if missing:
@@ -520,12 +569,249 @@ def emotional_path(pipe: EammPipeline) -> dict:
     return counts
 
 
-def capture_warp_inputs(pipe: EammPipeline, seconds: float = 10.0,
-                        seed: int = 3) -> dict:
-    """The arguments (image, grid) that the first decode chunk of a
-    neutral request passes to the wide and narrow warps, cloned.  The
-    models call the warps by their module attributes, which are wrapped for
-    this one request."""
+# ------------------------------------------------- phase 5: delivery
+
+def with_options(pipe: EammPipeline, **changes) -> EammPipeline:
+    """``pipe``'s models under its options with ``changes``."""
+    return EammPipeline(FULL_CONFIG, models=pipe.models,
+                        options=dataclasses.replace(pipe.options, **changes))
+
+
+def codec_diff(a: np.ndarray, b: np.ndarray) -> dict:
+    """|a - b| in [0, 1] of two uint8 RGB renders, one of them through
+    yuv420; raises outside the JAX package's bound (mean < 5e-3, max <
+    0.2, tests/test_infer_pipeline.py:129-130)."""
+    d = np.abs(a.astype(np.float32) - b.astype(np.float32)) / 255.0
+    out = {"mean": float(d.mean()), "max": float(d.max())}
+    if not (out["mean"] < YUV_BOUND[0] and out["max"] < YUV_BOUND[1]):
+        raise AssertionError(f"yuv420 strays from rgb: {out}")
+    return out
+
+
+def same_bits(a, b, what: str) -> None:
+    """Raise unless two outputs (arrays or tuples of planes) are equal bit
+    for bit."""
+    a, b = (a if isinstance(a, tuple) else (a,)), \
+        (b if isinstance(b, tuple) else (b,))
+    if len(a) != len(b) or any(x.shape != y.shape or not np.array_equal(x, y)
+                               for x, y in zip(a, b)):
+        raise AssertionError(f"{what}: not bitwise equal")
+
+
+def joined(stream, info: dict):
+    """A ``render_stream`` generator run to its end: the seconds to its
+    first and to its last payload go into ``info``; returns the payloads
+    put together."""
+    t0 = time.perf_counter()
+    parts = []
+    for _, payload in stream:
+        if not parts:
+            info["first_payload_seconds"] = time.perf_counter() - t0
+        parts.append(payload)
+    info["last_payload_seconds"] = time.perf_counter() - t0
+    info["payloads"] = len(parts)
+    if isinstance(parts[0], tuple):
+        return tuple(np.concatenate(x) for x in zip(*parts))
+    return np.concatenate(parts)
+
+
+def yuv420_path(pipe: EammPipeline, video: np.ndarray) -> None:
+    """A neutral 10 s ``render_yuv420`` and an emotional 4 s cold render
+    whose emotion frames are uploaded as packed planes, each against the
+    rgb render."""
+    yuv = with_options(pipe, transfer_format="yuv420")
+    yuv.render_yuv420(*clip_inputs(1.0, 100), add_emo=False)    # warm-ups
+    yuv.render_yuv420(*clip_inputs(4.0, 100), video)
+    for label, seconds, args in (("neutral", 10.0, (None, False)),
+                                 ("emotional frames, packed upload", 4.0,
+                                  (video, True))):
+        clip = clip_inputs(seconds, 3)
+        planes, _ = drive(f"{label} yuv420", RENDER_KERNELS,
+                          lambda: yuv.render_yuv420(*clip, *args), seconds)
+        emit("yuv420_vs_rgb", path=label, clip_seconds=seconds,
+             shapes=[list(p.shape) for p in planes],
+             diff=codec_diff(yuv420_to_rgb(*planes),
+                             pipe.render_uint8(*clip, *args)))
+
+
+def overlap_path(pipe: EammPipeline, video: np.ndarray) -> None:
+    """10 s renders in 4 overlapped segments against one segment, on the
+    card: neutral rgb, neutral yuv420 and emotional with raw frames (the
+    split keypoint stage); bitwise equal."""
+    yuv = with_options(pipe, transfer_format="yuv420")
+    clip = clip_inputs(10.0, 3)
+    cases = (("neutral rgb", pipe, "render_uint8", (None, False)),
+             ("neutral yuv420", yuv, "render_yuv420", (None, False)),
+             ("emotional rgb frames", pipe, "render_uint8", (video, True)))
+    for label, one, method, args in cases:
+        four = with_options(one, overlap_segments=4)
+        getattr(four, method)(*clip_inputs(1.0, 100), *args)      # warm-up
+        walls, outs = [], []
+        for S, p in ((1, one), (4, four)):
+            out, _ = drive(f"{label} S={S}", RENDER_KERNELS,
+                           lambda: getattr(p, method)(*clip, *args), 10.0)
+            walls.append(REQUESTS[-1]["wall_seconds"])
+            outs.append(out)
+        same_bits(*outs, f"{label}: S=4 against S=1")
+        emit("overlap_vs_single", path=label, clip_seconds=10.0,
+             s1_wall_seconds=walls[0], s4_wall_seconds=walls[1],
+             bitwise_equal=True)
+
+
+def stream_bounded_path(pipe: EammPipeline) -> None:
+    """``render_stream`` over 4 segments of a 10 s clip: the seconds to its
+    first and last payload, the payloads bitwise equal to
+    ``render_uint8``."""
+    four = with_options(pipe, overlap_segments=4)
+    clip = clip_inputs(10.0, 3)
+    info = {}
+    out, _ = drive("render_stream bounded S=4", RENDER_KERNELS,
+                   lambda: joined(four.render_stream(*clip, add_emo=False),
+                                  info), 10.0, info)
+    same_bits(out, four.render_uint8(*clip, add_emo=False),
+              "bounded stream against render_uint8")
+    emit("stream_vs_whole", path="bounded S=4", bitwise_equal=True)
+
+
+def pinned_hold(pipe: EammPipeline, renders: int = 3) -> None:
+    """Three 10 s renders held at once: each result is pageable memory,
+    and the page-locked host memory PyTorch's caching host allocator owns
+    (``torch.cuda.host_memory_stats``, where this torch has it) does not
+    grow with the results held."""
+    clip = clip_inputs(10.0, 3)
+    held, pinned = [], []
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    for _ in range(renders):
+        held.append(pipe.render_uint8(*clip, add_emo=False))
+        if stats is not None:
+            pinned.append(stats().get("allocated_bytes.current"))
+    if any(torch.from_numpy(out).is_pinned() for out in held):
+        raise AssertionError("a render handed out page-locked memory")
+    emit("host_pinned", renders_held=renders, result_pinned=False,
+         allocated_bytes=pinned or "not available")
+    if pinned and pinned[-1] > pinned[0]:
+        raise AssertionError(f"page-locked host memory grows with the "
+                             f"results held: {pinned}")
+
+
+def unbounded_path(pipe: EammPipeline, video: np.ndarray) -> None:
+    """Chunks of STREAM_FRAMES: 4 s neutral and emotional (a handle, fewer
+    frames than timesteps) streams within one count of the whole clip in
+    float32; the peak memory of 10 s and 60 s streams in bfloat16 (60 s
+    within 5% of 10 s) beside the whole 10 s clip's, and the 10 s stream
+    against that clip; the length policy's route at 4 s and 20 s."""
+    f32 = with_options(pipe, compute_dtype=torch.float32)
+    f32_chunks = with_options(f32, segment_frames=STREAM_FRAMES)
+    handle = f32.prepare_emotion(video)
+    clip = clip_inputs(4.0, 2)
+    for label, args in (("neutral", (None, False)),
+                        ("emotional handle", (handle, True))):
+        list(f32_chunks.render_stream(*clip_inputs(1.0, 100), *args))
+        whole = f32.render_uint8(*clip, *args)
+        info = {}
+        out, _ = drive(f"unbounded f32 {label}", RENDER_KERNELS,
+                       lambda: joined(f32_chunks.render_stream(*clip, *args),
+                                      info), 4.0, info)
+        diff = uint8_diff(out, whole)
+        emit("unbounded_vs_whole", path=label, dtype="float32",
+             clip_seconds=4.0, uint8_diff=diff)
+        if out.shape != whole.shape or diff["max"] > 1.0:
+            raise AssertionError(f"unbounded {label} strays from the whole "
+                                 f"clip: {diff}")
+
+    chunks = with_options(pipe, segment_frames=STREAM_FRAMES)
+    list(chunks.render_stream(*clip_inputs(1.0, 100), add_emo=False))
+    peaks, streamed = {}, None
+    for seconds in (10.0, 60.0):
+        clip = clip_inputs(seconds, 4)
+        info = {}
+        torch.cuda.reset_peak_memory_stats()
+        out, _ = drive("unbounded bf16 neutral", RENDER_KERNELS,
+                       lambda: joined(chunks.render_stream(
+                           *clip, add_emo=False), info), seconds, info)
+        peaks[f"stream_{seconds:g}s"] = torch.cuda.max_memory_allocated()
+        streamed = streamed if streamed is not None else out
+    torch.cuda.reset_peak_memory_stats()
+    whole = pipe.render_uint8(*clip_inputs(10.0, 4), add_emo=False)
+    peaks["whole_clip_10s"] = torch.cuda.max_memory_allocated()
+    emit("memory", path="unbounded bf16 neutral", max_memory_allocated=peaks,
+         ratio_60s_10s=peaks["stream_60s"] / peaks["stream_10s"])
+    emit("unbounded_vs_whole", path="neutral", dtype="bfloat16",
+         clip_seconds=10.0, uint8_diff=uint8_diff(streamed, whole))
+    if peaks["stream_60s"] > 1.05 * peaks["stream_10s"]:
+        raise AssertionError(f"the stream's memory grows with the clip: "
+                             f"{peaks}")
+
+    policy = with_options(pipe, segment_frames=STREAM_FRAMES,
+                          stream_policy_frames=POLICY_FRAMES)
+    info = {}
+    for name, route in (("_render_segments", "whole clip"),
+                        ("_render_stream_unbounded", "unbounded chunks")):
+        method = getattr(policy, name)
+        setattr(policy, name, lambda *a, m=method, r=route: (
+            info.__setitem__("route", r), m(*a))[1])
+    for seconds, want in ((4.0, "whole clip"), (20.0, "unbounded chunks")):
+        clip = clip_inputs(seconds, 5)
+        info.clear()
+        drive(f"policy {POLICY_FRAMES} frames", RENDER_KERNELS, lambda: policy.render_uint8(*clip, add_emo=False), seconds,
+              info)
+        if info["route"] != want:
+            raise AssertionError(f"{seconds} s took {info['route']}")
+
+
+def batch_inputs(seed: int = 20):
+    """N = len(BATCH_SECONDS) identities: sources, waveforms, poses."""
+    clips = [clip_inputs(s, seed + i) for i, s in enumerate(BATCH_SECONDS)]
+    return (np.stack([c[0] for c in clips]), [c[1] for c in clips],
+            [c[2] for c in clips])
+
+
+def batch_path(pipe: EammPipeline) -> dict:
+    """``render_batch_uint8`` of 4 identities: in float32 each identity
+    within one count of its own render; in bfloat16 ``render_batch_yuv420``
+    in 2 overlapped segments bitwise equal to one.  Returns the wide and
+    narrow warps' arguments on the batched path (N sources)."""
+    sources, wavs, poses = batch_inputs()
+    total = sum(BATCH_SECONDS)
+    warm = batch_inputs(100)
+    f32 = with_options(pipe, compute_dtype=torch.float32)
+    f32.render_batch_uint8(*warm)                                # warm-up
+    out, _ = drive("batch f32 N=4", RENDER_KERNELS,
+                   lambda: f32.render_batch_uint8(sources, wavs, poses), total)
+    for i in range(len(sources)):
+        single = f32.render_uint8(sources[i], wavs[i], poses[i],
+                                  add_emo=False)
+        diff = uint8_diff(out[i, :len(single)], single)
+        emit("batch_vs_single", identity=i, dtype="float32",
+             frames=len(single), uint8_diff=diff)
+        if diff["max"] > 1.0:
+            raise AssertionError(f"identity {i} strays from its own render: "
+                                 f"{diff}")
+    yuv = with_options(pipe, transfer_format="yuv420")
+    outs = []
+    for S in (1, 2):
+        p = with_options(yuv, overlap_segments=S)
+        p.render_batch_yuv420(*warm)                             # warm-up
+        planes, _ = drive(f"batch yuv420 bf16 N=4 S={S}", RENDER_KERNELS,
+                          lambda: p.render_batch_yuv420(sources, wavs, poses),
+                          total)
+        outs.append(planes)
+    same_bits(*outs, "batch S=2 against S=1")
+    emit("batch_overlap_vs_single", segments=2, bitwise_equal=True)
+    captured = capture_warps(
+        lambda: pipe.render_batch_uint8(sources, wavs, poses))
+    emit("batch_capture", Bi={k: v[0].shape[0] for k, v in captured.items()},
+         shapes={k: [list(t.shape) for t in v] for k, v in captured.items()})
+    if any(v[0].shape[0] != len(sources) for v in captured.values()):
+        raise AssertionError("the batched warps did not read N sources")
+    return captured
+
+
+def capture_warps(render) -> dict:
+    """The arguments (image, grid) that the first decode chunk of
+    ``render()`` passes to the wide and narrow warps, cloned.  The models
+    call the warps by their module attributes, which are wrapped for this
+    one call."""
     from eamm_tpu_torch.models import dense_motion, generator
     spied = {"warp_narrow": (dense_motion, "grid_sample_narrow"),
              "warp_wide": (generator, "grid_sample_wide")}
@@ -541,11 +827,18 @@ def capture_warp_inputs(pipe: EammPipeline, seconds: float = 10.0,
         originals[name] = getattr(module, attr)
         setattr(module, attr, spy(name, originals[name]))
     try:
-        pipe.render_uint8(*clip_inputs(seconds, seed), add_emo=False)
+        render()
     finally:
         for name, (module, attr) in spied.items():
             setattr(module, attr, originals[name])
     return captured
+
+
+def capture_warp_inputs(pipe: EammPipeline, seconds: float = 10.0,
+                        seed: int = 3) -> dict:
+    """``capture_warps`` of a neutral request."""
+    return capture_warps(lambda: pipe.render_uint8(
+        *clip_inputs(seconds, seed), add_emo=False))
 
 
 def entry_points() -> dict:
@@ -754,6 +1047,13 @@ def main() -> int:
     captured = capture_warp_inputs(pipe)
     worst = parity(captured_cases(captured), worst)
     counts = emotional_path(pipe)
+    video = emotion_clip(EMOTION_FRAMES, 7)
+    yuv420_path(pipe, video)
+    overlap_path(pipe, video)
+    stream_bounded_path(pipe)
+    pinned_hold(pipe)
+    unbounded_path(pipe, video)
+    worst = parity(captured_cases(batch_path(pipe)), worst)
     entry = entry_points()
     times = timings(captured)
 
@@ -763,6 +1063,10 @@ def main() -> int:
     source_of["kp_expectation"] = ("emotional map frames 4 s", counts["map"])
     for name in ("warp_shared", "kp_expectation_fused"):
         source_of[name] = ("entry points", entry)
+    by_path = {name: {(f"{r['path']} {r['clip_seconds']:g} s"
+                       if "clip_seconds" in r else r["path"]):
+                      r["launches"][name] for r in REQUESTS}
+               for name in KERNELS}
     rows = []
     for name, (_, _, source, replaces) in KERNELS.items():
         t = times[name]
@@ -773,6 +1077,7 @@ def main() -> int:
                      "max_abs_err": worst[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+                     "launches_by_path": by_path[name],
                      **{k: t[k] for k in ("timing", "plan") if k in t}})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,24 +1,44 @@
-"""One-shot emotional talking-face inference, whole-clip path (PyTorch).
+"""One-shot emotional talking-face inference (PyTorch).
 
 Counterpart of ``eamm_tpu/infer/pipeline.py``'s ``render``,
-``render_uint8`` and ``prepare_emotion``.  A clip goes
+``render_uint8``, ``render_yuv420``, ``render_stream``,
+``render_batch_uint8``, ``render_batch_yuv420`` and ``prepare_emotion``.
+A clip goes
 
   waveform -> MFCC windows -> ATNet -> audio keypoints (KPDetectorA) ->
   one-euro smoothing -> (emotion displacement from the emotion frames,
   smoothed, added to keypoints 1, 4 and 6) -> normalize_kp ->
   generator.encode_source once -> generator.decode per chunk of
-  ``frame_chunk`` frames -> uint8 frames.
+  ``frame_chunk`` frames -> uint8 RGB frames or yuv420 planes on the host.
 
 As in the JAX pipeline ``add_emo`` defaults to True (the demo's
-``linear_3`` head), the clip length is padded up to a multiple of the time
-bucket (waveform and pose with zeros; every stage before the decoder is
-causal, so the padding never reaches the real frames) and the padded tail
-is cut off at the end.  ``compute_dtype`` casts the generator, the source
+``linear_3`` head).  ``compute_dtype`` casts the generator, the source
 image, the normalized keypoints and, for the linear head over fewer
 emotion frames than timesteps, the emotion trunk; the keypoint path, the
 emotion heads and their smoothing stay float32.  Every decode is
-shared-source: the single source and its features are never repeated per
-frame.
+shared-source: the sources and their features are never repeated per
+frame.  Two routes serve a clip:
+
+- **Whole clip.**  The clip is padded up to a multiple of the time bucket
+  (waveform and pose with zeros; every stage before the decoder is causal,
+  so the padding never reaches the real frames; the padded tail is never
+  copied to the host).  The keypoint stage runs over the whole clip: its
+  audio half is queued first, then the emotion frames' upload, then its
+  emotion half, so the upload overlaps the audio half.  The frames decode
+  in ``overlap_segments`` equal segments of whole chunks; each segment's
+  copy to the host (``utils/transfer.py``) is queued behind it and runs
+  while later segments decode, and the host waits for the first copy only
+  once every segment is queued.  The segments decode the chunks one
+  segment would, so the result does not depend on their number for a given
+  padded length.
+- **Unbounded** (``segment_frames``, see ``use_unbounded``).  Keypoints and
+  frames in chunks of ``segment_frames`` frames, the recurrent state (the
+  LSTM's, the one-euro filters', the first audio keypoints) carried from
+  chunk to chunk, at most two chunks in flight: device memory does not
+  grow with the clip.  Within one uint8 count of the whole clip.
+
+``render_batch_*`` renders N neutral clips at once on the whole-clip route,
+identity-major, N sources read in place by the warps.
 """
 from __future__ import annotations
 
@@ -35,15 +55,18 @@ from eamm_tpu_torch import config as cfg
 from eamm_tpu_torch.convert import state_dicts_from_jax
 from eamm_tpu_torch.models import EmotionK, EmotionMap
 from eamm_tpu_torch.models.kp_detector import KPHead
+from eamm_tpu_torch.ops.colorspace import (pack_yuv420_np, rgb_to_yuv420,
+                                           unpack_yuv420, yuv420_to_rgb)
 from eamm_tpu_torch.ops.filters import one_euro_filter, one_euro_filter_np
-from eamm_tpu_torch.ops.mfcc import (audio_to_mfcc_windows,
+from eamm_tpu_torch.ops.mfcc import (PAD_SAMPLES, audio_to_mfcc_windows,
+                                     chunk_sample_start, chunk_samples_len,
+                                     mfcc_window_chunk,
                                      min_samples_for_windows,
-                                     num_windows_for_samples)
+                                     num_windows_for_samples,
+                                     padded_buffer_len)
 from eamm_tpu_torch.ops.motion import normalize_kp
+from eamm_tpu_torch.utils.transfer import Link
 
-_STREAMING_TODO = ("yuv420 transfer and packed yuv420 emotion frames are not "
-                   "ported yet (ROADMAP Queue 1 item 2, 'Delivery and "
-                   "streaming')")
 _ADAPT_SCALE_TODO = ("adapt_scale is not ported yet (ROADMAP Queue 1, "
                      "'The rest of the JAX package')")
 
@@ -51,6 +74,7 @@ _ADAPT_SCALE_TODO = ("adapt_scale is not ported yet (ROADMAP Queue 1, "
 _EMO_HEAD = {"linear_3": "linear", "linear_4": "linear_4",
              "linear_10": "linear_10", "linear_np_4": "linear_np_4",
              "linear_np_10": "linear_np_10", "map": "map", "map_4": "map_4"}
+_TRANSFER_FORMATS = ("rgb", "yuv420")
 
 
 @dataclasses.dataclass
@@ -64,7 +88,25 @@ class PipelineOptions:
     time_bucket: int = 32             # clip-length padding granularity
     compute_dtype: torch.dtype = torch.float32   # generator decode dtype
     check_add: bool = False           # freeze the audio kp at frame 0
-    transfer_format: str = "rgb"      # "rgb" only: yuv420 is not ported
+    # "rgb": uint8 RGB frames to the host.  "yuv420": yuv420p planes made
+    # on the device from each chunk's float prediction, 12 bits a pixel
+    # (the loss a yuv420p encoder imposes), and float emotion frames
+    # uploaded as packed planes
+    transfer_format: str = "rgb"
+    # the JAX package's concurrent copies to the host; accepted so that
+    # its options carry over, and ignored: each payload tensor goes to
+    # the host in one copy on the link's copy stream
+    fetch_streams: int = 6
+    # whole-clip renders decode in this many equal segments, each copied to
+    # the host while the later ones decode (1: one segment)
+    overlap_segments: int = 1
+    # unbounded streaming: chunks of this many frames (a multiple of
+    # frame_chunk), the recurrent state carried between them
+    segment_frames: int | None = None
+    # with segment_frames, clips of at most this many frames keep the whole
+    # clip route and longer ones take the chunks; without a policy every
+    # render takes the chunks (render_uint8 and render_yuv420 too)
+    stream_policy_frames: int | None = None
     device: str = "cuda"
 
 
@@ -73,10 +115,11 @@ class EmotionHandle:
     """An emotion clip on the device, reusable across renders
     (``EammPipeline.prepare_emotion``); pass it as ``transformed_video``.
 
-    ``frames`` [U, 3, 256, 256] float32 in [0, 1]; ``feats`` the [Ub, 512]
-    float32 trunk features (linear head only, else None), Ub = U rounded
-    up to a multiple of 32, rows past ``n_frames`` computed from zero
-    frames and never read."""
+    ``frames`` [U, 3, 256, 256] float32 in [0, 1] (on a yuv420 pipeline
+    uploaded as packed planes and unpacked on the device); ``feats`` the
+    [Ub, 512] float32 trunk features (linear head only, else None), Ub = U
+    rounded up to a multiple of 32, rows past ``n_frames`` computed from
+    zero frames and never read."""
     frames: torch.Tensor
     feats: torch.Tensor | None
     n_frames: int
@@ -160,7 +203,7 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class EammPipeline:
-    """The five models on one device and the whole-clip renderer."""
+    """The five models on one device and the renderers."""
 
     def __init__(self, config: dict, state_dicts: dict | None = None,
                  options: PipelineOptions | None = None,
@@ -174,7 +217,12 @@ class EammPipeline:
         self.config = config
         self.options = options or PipelineOptions()
         kind = _emotion_kind(self.options.emo_type)
+        if self.options.transfer_format not in _TRANSFER_FORMATS:
+            raise ValueError(f"transfer_format must be one of "
+                             f"{_TRANSFER_FORMATS}, got "
+                             f"{self.options.transfer_format!r}")
         self.device = torch.device(self.options.device)
+        self.link = Link(self.device)        # copies to and from the host
         if models is None:
             models = cfg.build_all(config, kind)
             for name, model in models.items():
@@ -203,6 +251,10 @@ class EammPipeline:
         return (_EMO_HEAD[self.options.emo_type] == "linear"
                 and isinstance(self.models["emo_detector"], EmotionK))
 
+    @property
+    def _yuv(self) -> bool:
+        return self.options.transfer_format == "yuv420"
+
     # ------------------------------------------------------------ stages
 
     @torch.no_grad()
@@ -214,8 +266,11 @@ class EammPipeline:
 
     @torch.no_grad()
     def emotion_stage(self, emotion: EmotionInput, kp_value: torch.Tensor,
-                      kp_jacobian: torch.Tensor) -> dict:
-        """Per-timestep emotion displacements, one-euro smoothed (x100).
+                      kp_jacobian: torch.Tensor, euro_carry: dict | None = None,
+                      return_carry: bool = False):
+        """Per-timestep emotion displacements, one-euro smoothed (x100),
+        the filters started from ``euro_carry`` ({'value', 'jacobian'}
+        states; None: fresh); with ``return_carry`` their final states too.
 
         Routes, as in the JAX pipeline: a feature table is gathered and read
         by the linear head; the linear head over fewer unique frames than
@@ -234,81 +289,164 @@ class EammPipeline:
         else:
             frames = data if index is None else data[index]
             kp, _ = model(frames, kp_value, kp_jacobian, head=head)
-        return {k: one_euro_filter(kp[k], mincutoff=1.0, beta=0.2, freq=100,
-                                   scale=100.0)
-                for k in ("value", "jacobian")}
+        smoothed, carry = {}, {}
+        for k in ("value", "jacobian"):
+            smoothed[k], carry[k] = one_euro_filter(
+                kp[k], mincutoff=1.0, beta=0.2, freq=100, scale=100.0,
+                carry=None if euro_carry is None else euro_carry[k],
+                return_carry=True)
+        return (smoothed, carry) if return_carry else smoothed
+
+    def _smooth_audio(self, kp_audio: dict, kp_initial: dict,
+                      carry: dict | None = None):
+        """Audio keypoints -> (driving keypoints, the filters' states): the
+        one-euro filter from ``carry``, or with ``check_add`` the first
+        audio keypoints held (only the emotion displacement animates)."""
+        if self.options.check_add:
+            return ({k: kp_initial[k].expand_as(v)
+                     for k, v in kp_audio.items()}, carry)
+        driving, states = {}, {}
+        for k, v in kp_audio.items():
+            driving[k], states[k] = one_euro_filter(
+                v, mincutoff=0.05, beta=8.0, freq=100, scale=10.0,
+                carry=None if carry is None else carry[k], return_carry=True)
+        return driving, states
 
     @torch.no_grad()
-    def clip_keypoints(self, source: torch.Tensor, windows: torch.Tensor,
-                       pose: torch.Tensor,
-                       emotion: EmotionInput | None = None):
-        """source [1,3,256,256], windows [Tp,28,12], pose [Tp,6] (float32 on
-        the device), ``emotion`` for the emotional render -> (normalized
-        driving kp over Tp, source kp [K,...])."""
+    def audio_keypoints(self, source: torch.Tensor, windows: torch.Tensor,
+                        pose: torch.Tensor):
+        """The audio half of the keypoint stage: source [1,3,256,256],
+        windows [Tp,28,12], pose [Tp,6] (float32 on the device) -> (source
+        kp [K,...], smoothed driving kp over Tp, the first audio kp
+        unsmoothed)."""
         o, m = self.options, self.models
         kp_source = m["kp_detector"](source)
         deco = m["audio_feature"](source, windows[None], pose[None],
                                   audio_weight=o.audio_weight)[0]
         kp_audio = m["kp_detector_a"](deco)                    # over Tp
         kp_initial = {k: v[0] for k, v in kp_audio.items()}
-        if o.check_add:      # only the emotion displacement animates
-            driving = {k: kp_initial[k].expand_as(v)
-                       for k, v in kp_audio.items()}
-        else:
-            driving = {k: one_euro_filter(v, mincutoff=0.05, beta=8.0,
-                                          freq=100, scale=10.0)
-                       for k, v in kp_audio.items()}
+        driving, _ = self._smooth_audio(kp_audio, kp_initial)
+        return {k: v[0] for k, v in kp_source.items()}, driving, kp_initial
+
+    @torch.no_grad()
+    def emotion_keypoints(self, kp_s: dict, driving: dict, kp_initial: dict,
+                          emotion: EmotionInput | None = None,
+                          euro_carry: dict | None = None,
+                          return_carry: bool = False):
+        """The emotion half: the emotion displacement, when ``emotion`` is
+        given, added to the driving keypoints, then ``normalize_kp`` ->
+        normalized driving kp (and the emotion filters' states with
+        ``return_carry``)."""
+        o = self.options
         if emotion is not None:
-            emo = self.emotion_stage(emotion, driving["value"],
-                                     driving["jacobian"])
+            emo, euro_carry = self.emotion_stage(
+                emotion, driving["value"], driving["jacobian"], euro_carry,
+                return_carry=True)
             driving = compose_kp(driving, emo)
-        kp_s = {k: v[0] for k, v in kp_source.items()}
         kp_norm = normalize_kp(kp_s, driving, kp_initial,
                                use_relative_movement=o.relative,
                                use_relative_jacobian=o.relative)
-        return kp_norm, kp_s
+        return (kp_norm, euro_carry) if return_carry else kp_norm
+
+    def clip_keypoints(self, source: torch.Tensor, windows: torch.Tensor,
+                       pose: torch.Tensor,
+                       emotion: EmotionInput | None = None):
+        """Both halves over the whole clip -> (normalized driving kp over
+        Tp, source kp [K,...])."""
+        kp_s, driving, kp_initial = self.audio_keypoints(source, windows, pose)
+        return self.emotion_keypoints(kp_s, driving, kp_initial, emotion), kp_s
 
     @torch.no_grad()
-    def decode_clip(self, source: torch.Tensor, kp_norm: dict,
-                    kp_s: dict) -> torch.Tensor:
-        """Chunked shared-source decode -> uint8 [Tp, 256, 256, 3] on the
-        device."""
+    def source_features(self, source: torch.Tensor):
+        """Sources [Bs, 3, 256, 256] -> (in ``compute_dtype``, encoded)."""
+        src = source.to(self.options.compute_dtype)
+        return src, self.generator.encode_source(src)
+
+    def _to_payload(self, pred: torch.Tensor) -> tuple:
+        """Float prediction [n, 3, H, W] in [0, 1] -> (uint8 frames
+        [n, H, W, 3],) or, on a yuv420 pipeline, (Y, U, V) uint8 planes."""
+        nhwc = pred.float().permute(0, 2, 3, 1)
+        if self._yuv:
+            return rgb_to_yuv420(nhwc)
+        return (torch.clamp(torch.round(nhwc * 255.0), 0, 255)
+                .to(torch.uint8),)
+
+    @torch.no_grad()
+    def decode_frames(self, src: torch.Tensor, feats: torch.Tensor,
+                      kp_driving: dict, kp_source: dict, start: int,
+                      stop: int, chunk: int) -> tuple:
+        """Frames [start, stop) of N identities (sources and features from
+        ``source_features``, driving kp [N, Tp, ...], source kp [N, ...]),
+        in chunks of ``chunk`` frames an identity, identity-major: N x chunk
+        frames a decode, frame b reading source b // chunk in place -> the
+        payload (``_to_payload``), each tensor [N, stop - start, ...], on
+        the device."""
         dt = self.options.compute_dtype
-        gen = self.generator
-        src = source.to(dt)
-        feats = gen.encode_source(src)
-        F = self.options.frame_chunk
-        Tp = kp_norm["value"].shape[0]
-        frames = []
-        for start in range(0, Tp, F):
-            kp_d = {k: v[start:start + F].to(dt) for k, v in kp_norm.items()}
-            n = kp_d["value"].shape[0]
-            kp_src = {k: v.to(dt)[None].expand(n, *v.shape)
-                      for k, v in kp_s.items()}
-            pred = gen.decode(src, feats, kp_d, kp_src).float()
-            frames.append(torch.clamp(torch.round(pred * 255.0), 0, 255)
-                          .to(torch.uint8).permute(0, 2, 3, 1))
-        return torch.cat(frames)
+        N = src.shape[0]
+        kp_src = {k: v.to(dt) for k, v in kp_source.items()}
+        parts = []
+        for t in range(start, stop, chunk):
+            kp_d = {k: v[:, t:min(t + chunk, stop)].to(dt)
+                    for k, v in kp_driving.items()}
+            n = kp_d["value"].shape[1]
+            kp_d = {k: v.flatten(0, 1) for k, v in kp_d.items()}
+            kps = {k: v.repeat_interleave(n, dim=0) for k, v in kp_src.items()}
+            out = self._to_payload(self.generator.decode(src, feats, kp_d, kps))
+            parts.append(tuple(x.view(N, n, *x.shape[1:]) for x in out))
+        return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+
+    def _decode_one(self, src: torch.Tensor, feats: torch.Tensor,
+                    kp_norm: dict, kp_s: dict, start: int,
+                    stop: int) -> tuple:
+        """``decode_frames`` of one identity in chunks of ``frame_chunk``:
+        kp_norm over the clip, kp_s [K, ...] -> each payload tensor
+        [stop - start, ...]."""
+        payload = self.decode_frames(
+            src, feats, {k: v[None] for k, v in kp_norm.items()},
+            {k: v[None] for k, v in kp_s.items()}, start, stop,
+            self.options.frame_chunk)
+        return tuple(x[0] for x in payload)
+
+    def decode_clip(self, source: torch.Tensor, kp_norm: dict, kp_s: dict):
+        """Chunked shared-source decode of the whole clip -> on the device,
+        uint8 [Tp, 256, 256, 3], or (Y, U, V) on a yuv420 pipeline."""
+        payload = self._decode_one(*self.source_features(source), kp_norm,
+                                   kp_s, 0, kp_norm["value"].shape[0])
+        return payload if self._yuv else payload[0]
 
     # ------------------------------------------------------------ emotion
 
-    def _emotion_frames(self, video) -> torch.Tensor:
-        """Host emotion frames [U, H, W, 3] (float32 in [0, 1], or uint8
-        scaled by float32(1/255) on the device) -> [U, 3, H, W] float32 on
-        the device."""
+    def _upload_emotion(self, video) -> torch.Tensor:
+        """Host emotion frames -> the device as they travel: float32
+        [U, H, W, 3] in [0, 1], uint8 [U, H, W, 3], or packed yuv420 planes
+        uint8 [U, 3H/2, W] (``pack_yuv420_np``; a yuv420 pipeline packs
+        float frames on the host first)."""
         frames = np.asarray(video)
-        if frames.dtype == np.uint8 and frames.ndim == 3:
-            raise NotImplementedError(_STREAMING_TODO)
-        if frames.ndim != 4 or frames.shape[-1] != 3 or not len(frames):
-            raise ValueError(f"need emotion frames [U, H, W, 3], got "
-                             f"{frames.shape}")
-        if frames.dtype == np.uint8:
-            t = torch.as_tensor(frames, device=self.device).float() \
-                * np.float32(1.0 / 255.0)
-        else:
-            t = torch.as_tensor(frames.astype(np.float32, copy=False),
-                                device=self.device)
-        return t.permute(0, 3, 1, 2)
+        packed = frames.dtype == np.uint8 and frames.ndim == 3
+        if not (packed or (frames.ndim == 4 and frames.shape[-1] == 3)) \
+                or not len(frames):
+            raise ValueError(f"need emotion frames [U, H, W, 3] or packed "
+                             f"yuv420 planes [U, 3H/2, W] uint8, got "
+                             f"{frames.shape} {frames.dtype}")
+        if frames.dtype != np.uint8:
+            frames = frames.astype(np.float32, copy=False)
+            if self._yuv:
+                frames = pack_yuv420_np(frames)
+        return self.link.upload(frames)
+
+    @staticmethod
+    def _decode_emotion(frames: torch.Tensor) -> torch.Tensor:
+        """Uploaded emotion frames -> [U, 3, H, W] float32 in [0, 1]:
+        packed planes unpacked, uint8 RGB scaled by float32(1/255)."""
+        if frames.dtype == torch.uint8:
+            frames = (unpack_yuv420(frames) if frames.dim() == 3
+                      else frames.float() * np.float32(1.0 / 255.0))
+        return frames.permute(0, 3, 1, 2)
+
+    def _emotion_frames(self, video) -> torch.Tensor:
+        """Host emotion frames (``_upload_emotion``) -> [U, 3, H, W] float32
+        on the device."""
+        return self._decode_emotion(self._upload_emotion(video))
 
     @torch.no_grad()
     def prepare_emotion(self, transformed_video) -> EmotionHandle:
@@ -342,49 +480,241 @@ class EammPipeline:
         index = torch.arange(Tp, device=self.device) % U if U < Tp else None
         return EmotionInput(frames, index, False)
 
-    # ------------------------------------------------------------ render
+    # ------------------------------------------------- whole-clip route
 
-    def _prepare(self, source_image, waveform, all_pose):
-        """Host-side padding: T real frames, bucketed to Tp."""
+    def _source_tensor(self, source_image) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(source_image, np.float32),
+                               device=self.device).permute(2, 0, 1)[None]
+
+    def _prepare(self, source_image, waveform, all_pose, segments: int = 1):
+        """Host-side padding: T real frames, bucketed to Tp, which splits
+        into ``segments`` equal segments of whole decode chunks."""
         o = self.options
         waveform = np.asarray(waveform, np.float32).reshape(-1)
         T = num_windows_for_samples(waveform.shape[0])
-        Tp = _bucket(T, _bucket(o.time_bucket, o.frame_chunk))
+        Tp = _bucket(T, _bucket(o.time_bucket, o.frame_chunk * segments))
         wav_p = np.zeros(max(waveform.shape[0], min_samples_for_windows(Tp)),
                          np.float32)
         wav_p[:waveform.shape[0]] = waveform
         pose_p = np.zeros((Tp, 6), np.float32)
         pose_p[:T] = prepare_pose_np(all_pose, T, smooth=o.smooth_pose)
         dev = self.device
-        source = torch.as_tensor(np.asarray(source_image, np.float32),
-                                 device=dev).permute(2, 0, 1)[None]
-        return (T, source, torch.as_tensor(wav_p, device=dev),
+        return (T, self._source_tensor(source_image),
+                torch.as_tensor(wav_p, device=dev),
                 torch.as_tensor(pose_p, device=dev))
 
+    def _kp_stage(self, source, wav, pose, transformed_video, add_emo):
+        """The whole clip's keypoint stage: the audio half is queued first,
+        then the emotion frames' upload, then the emotion half, so a cold
+        render's upload overlaps the audio half.  -> (normalized driving kp
+        over Tp, source kp)."""
+        if add_emo and transformed_video is None:
+            raise ValueError("add_emo requires transformed_video frames")
+        Tp = pose.shape[0]
+        kp_s, driving, kp_initial = self.audio_keypoints(
+            source, audio_to_mfcc_windows(wav)[:Tp], pose)
+        emotion = (self._emotion_input(transformed_video, Tp) if add_emo
+                   else None)
+        return self.emotion_keypoints(kp_s, driving, kp_initial, emotion), kp_s
+
+    def _segments(self, T: int, Tseg: int, decode, axis: int = 0):
+        """Yields (start frame, payload on the host) per segment of Tseg
+        frames, in clip order, ``decode(start, stop)`` giving a segment's
+        payload on the device.  Every segment's decode and copy are queued
+        before the host waits for the first copy; each copy is cut to the
+        T real frames along ``axis``, and segments holding only padding are
+        not decoded."""
+        fetches = [(start, self.link.fetch_async(
+            decode(start, start + Tseg), min(Tseg, T - start), axis))
+            for start in range(0, T, Tseg)]
+        for start, fetch in fetches:
+            yield start, fetch.result()
+
     @torch.no_grad()
+    def _render_segments(self, source_image, waveform, all_pose,
+                         transformed_video, add_emo):
+        """The whole-clip route: yields (start frame, payload on the host)
+        per segment of the clip (``_segments``)."""
+        S = max(1, self.options.overlap_segments)
+        T, source, wav, pose = self._prepare(source_image, waveform,
+                                             all_pose, S)
+        kp_norm, kp_s = self._kp_stage(source, wav, pose, transformed_video,
+                                       add_emo)
+        src, feats = self.source_features(source)
+        yield from self._segments(T, pose.shape[0] // S, lambda a, b: (
+            self._decode_one(src, feats, kp_norm, kp_s, a, b)))
+
+    # ------------------------------------------------- unbounded route
+
+    def use_unbounded(self, frames: int) -> bool:
+        """Should a clip of ``frames`` delivered frames take the unbounded
+        chunks (True) or the whole-clip route?  Never without
+        ``segment_frames``; always with it and no
+        ``stream_policy_frames``; else past the policy's length."""
+        o = self.options
+        if not o.segment_frames:
+            return False
+        if o.stream_policy_frames is None:
+            return True
+        return frames > o.stream_policy_frames
+
+    @torch.no_grad()
+    def _stream_prelude(self, source: torch.Tensor):
+        """Once a stream: source kp [K,...], ATNet's identity feature, and
+        the source in ``compute_dtype`` with its encoded features."""
+        m = self.models
+        kp_s = {k: v[0] for k, v in m["kp_detector"](source).items()}
+        image_feature = m["audio_feature"].encode_image(source)
+        return (kp_s, image_feature, *self.source_features(source))
+
+    @torch.no_grad()
+    def _stream_kp_chunk(self, kp_s: dict, image_feature: torch.Tensor,
+                         samples: torch.Tensor, pose: torch.Tensor,
+                         emotion: EmotionInput | None, carry: dict | None):
+        """One chunk's keypoints: ``samples`` the sample before the
+        chunk's slice of the padded buffer, then the slice
+        [chunk_samples_len(K)]; pose [K, 6] -> (normalized kp over K, the
+        carry: the LSTM's (h, c), the audio and emotion filters' states and
+        the first chunk's first audio kp, unsmoothed).  ``carry`` None
+        starts the stream."""
+        o, m = self.options, self.models
+        K = pose.shape[0]
+        carry = carry or {}
+        windows = mfcc_window_chunk(samples[1:], samples[:1], K)
+        deco, lstm = m["audio_feature"].window_features(
+            image_feature, windows[None], pose[None], o.audio_weight,
+            carry=carry.get("lstm"), return_carry=True)
+        kp_audio = m["kp_detector_a"](deco[0])
+        kp_initial = carry.get("kp_initial") or {
+            k: v[0] for k, v in kp_audio.items()}
+        driving, euro = self._smooth_audio(kp_audio, kp_initial,
+                                           carry.get("euro"))
+        kp_norm, emo_euro = self.emotion_keypoints(
+            kp_s, driving, kp_initial, emotion, carry.get("emo_euro"),
+            return_carry=True)
+        return kp_norm, {"lstm": lstm, "euro": euro,
+                         "kp_initial": kp_initial, "emo_euro": emo_euro}
+
+    @torch.no_grad()
+    def _render_stream_unbounded(self, source_image, waveform, all_pose,
+                                 transformed_video, add_emo):
+        """The unbounded route: yields (start frame, payload on the host)
+        per chunk of ``segment_frames``.  One zero-padded host sample
+        buffer, each chunk's slice uploaded with the sample before it;
+        emotion frames made a handle once; a chunk's decode and copy are
+        queued before the host waits for the chunk two back, so at most two
+        are in flight."""
+        o = self.options
+        K = o.segment_frames
+        if K % o.frame_chunk:
+            raise ValueError("segment_frames must be a multiple of "
+                             "frame_chunk")
+        wav = np.asarray(waveform, np.float32).reshape(-1)
+        T = num_windows_for_samples(wav.shape[0])
+        n_chunks = max(1, math.ceil(T / K))
+        # buf[1 + i] is sample i of the padded signal; buf[0] is a zero
+        # before it, the first chunk's preceding sample
+        buf = np.zeros(1 + max(padded_buffer_len(n_chunks * K),
+                               2 * PAD_SAMPLES + wav.shape[0]), np.float32)
+        buf[1 + PAD_SAMPLES:1 + PAD_SAMPLES + wav.shape[0]] = wav
+        pose = np.zeros((n_chunks * K, 6), np.float32)
+        pose[:T] = prepare_pose_np(all_pose, T, smooth=o.smooth_pose)
+        handle = None
+        if add_emo:
+            if transformed_video is None:
+                raise ValueError("add_emo requires transformed_video frames")
+            handle = (transformed_video
+                      if isinstance(transformed_video, EmotionHandle)
+                      else self.prepare_emotion(transformed_video))
+        kp_s, image_feature, src, feats = self._stream_prelude(
+            self._source_tensor(source_image))
+        n_samples = 1 + chunk_samples_len(K)
+        carry, pending = None, []
+        for c in range(n_chunks):
+            s0 = chunk_sample_start(c * K)
+            emotion = None
+            if handle is not None:
+                index = (torch.arange(c * K, (c + 1) * K, device=self.device)
+                         % handle.n_frames)
+                emotion = (EmotionInput(handle.feats, index, True)
+                           if handle.feats is not None
+                           else EmotionInput(handle.frames, index, False))
+            if len(pending) == 2:
+                start, fetch = pending.pop(0)
+                yield start, fetch.result()
+            kp_norm, carry = self._stream_kp_chunk(
+                kp_s, image_feature,
+                self.link.upload(buf[s0:s0 + n_samples]),
+                self.link.upload(pose[c * K:(c + 1) * K]),
+                emotion, carry)
+            payload = self._decode_one(src, feats, kp_norm, kp_s, 0, K)
+            pending.append((c * K, self.link.fetch_async(
+                payload, min(K, T - c * K))))
+        for start, fetch in pending:
+            yield start, fetch.result()
+
+    # ------------------------------------------------- entry points
+
+    def _payloads(self, source_image, waveform, all_pose, transformed_video,
+                  add_emo):
+        """(start frame, payload) of the clip in order, by the route
+        ``use_unbounded`` picks for its length."""
+        add_emo = self.options.add_emo if add_emo is None else add_emo
+        T = num_windows_for_samples(np.asarray(waveform).reshape(-1).shape[0])
+        route = (self._render_stream_unbounded if self.use_unbounded(T)
+                 else self._render_segments)
+        return route(source_image, waveform, all_pose, transformed_video,
+                     add_emo)
+
+    @staticmethod
+    def _join(payloads, axis: int = 0) -> tuple:
+        parts = [p for _, p in payloads]
+        if len(parts) == 1:
+            return parts[0]
+        return tuple(np.concatenate(x, axis=axis) for x in zip(*parts))
+
     def render_uint8(self, source_image, waveform, all_pose,
                      transformed_video=None, add_emo: bool | None = None,
                      adapt_scale: bool = False) -> np.ndarray:
         """source_image [256,256,3] float32 in [0, 1], waveform [N] float32
         at 16 kHz, all_pose [M, 7] (or [1, 7]), transformed_video the
         mouth-masked emotion frames [U, 256, 256, 3] (float32 in [0, 1] or
-        uint8) or an ``EmotionHandle``, required when ``add_emo`` (None:
-        ``options.add_emo``) -> uint8 frames [T, 256, 256, 3] on the
-        host."""
-        o = self.options
-        add_emo = o.add_emo if add_emo is None else add_emo
+        uint8), packed yuv420 planes [U, 384, 256] uint8, or an
+        ``EmotionHandle``, required when ``add_emo`` (None:
+        ``options.add_emo``) -> uint8 frames [T, 256, 256, 3] on the host
+        (on a yuv420 pipeline ``render_yuv420`` turned back into RGB)."""
         if adapt_scale:
             raise NotImplementedError(_ADAPT_SCALE_TODO)
-        if o.transfer_format != "rgb":
-            raise NotImplementedError(_STREAMING_TODO)
-        T, source, wav, pose = self._prepare(source_image, waveform, all_pose)
-        Tp = pose.shape[0]
-        emotion = (self._emotion_input(transformed_video, Tp) if add_emo
-                   else None)
-        windows = audio_to_mfcc_windows(wav)[:Tp]
-        kp_norm, kp_s = self.clip_keypoints(source, windows, pose, emotion)
-        frames = self.decode_clip(source, kp_norm, kp_s)
-        return frames[:T].cpu().numpy()
+        if self._yuv:
+            return yuv420_to_rgb(*self.render_yuv420(
+                source_image, waveform, all_pose, transformed_video, add_emo))
+        return self._join(self._payloads(source_image, waveform, all_pose,
+                                         transformed_video, add_emo))[0]
+
+    def render_yuv420(self, source_image, waveform, all_pose,
+                      transformed_video=None, add_emo: bool | None = None):
+        """``render_uint8``'s clip as yuv420p planes: (Y [T,256,256], U, V
+        [T,128,128]) uint8 on the host.  Needs transfer_format 'yuv420'."""
+        if not self._yuv:
+            raise ValueError("render_yuv420 requires transfer_format='yuv420'")
+        return self._join(self._payloads(source_image, waveform, all_pose,
+                                         transformed_video, add_emo))
+
+    def render_stream(self, source_image, waveform, all_pose,
+                      transformed_video=None, add_emo: bool | None = None,
+                      adapt_scale: bool = False):
+        """A generator of (start frame, payload) in clip order: payload the
+        uint8 frames [k, 256, 256, 3] or, on a yuv420 pipeline, the (Y, U, V)
+        planes of frames start .. start + k - 1.  Whole-clip route: one
+        payload per segment (``overlap_segments``), each as soon as its copy
+        is done; unbounded route: one per chunk.  The payloads put together
+        equal ``render_uint8`` / ``render_yuv420``."""
+        if adapt_scale:
+            raise ValueError("render_stream does not support adapt_scale "
+                             "(its convex-hull scale is a host round trip)")
+        for start, payload in self._payloads(source_image, waveform, all_pose,
+                                             transformed_video, add_emo):
+            yield start, (payload if self._yuv else payload[0])
 
     def render(self, source_image, waveform, all_pose,
                transformed_video=None, add_emo: bool | None = None,
@@ -393,6 +723,93 @@ class EammPipeline:
         return self.render_uint8(source_image, waveform, all_pose,
                                  transformed_video, add_emo, adapt_scale
                                  ).astype(np.float32) / 255.0
+
+    # ------------------------------------------------- batched render
+
+    def _batch_chunk(self, n_identities: int) -> int:
+        """Frames per identity in a batched decode: N x F stays at most 128
+        (F at least 8), so activations do not grow with N."""
+        return max(8, min(self.options.frame_chunk,
+                          128 // max(1, n_identities)))
+
+    def _prepare_batch(self, source_images, waveforms, poses):
+        """Host-side padding for N clips: each clip's MFCC windows computed
+        from its own waveform, then windows and poses zero-padded to the
+        longest clip, bucketed so the padded length splits into
+        ``overlap_segments`` segments of whole batch chunks."""
+        o, dev = self.options, self.device
+        N = len(waveforms)
+        windows = [audio_to_mfcc_windows(torch.as_tensor(
+            np.asarray(w, np.float32).reshape(-1), device=dev))
+            for w in waveforms]
+        T = max(w.shape[0] for w in windows)
+        S = max(1, o.overlap_segments)
+        Tp = _bucket(T, _bucket(o.time_bucket, self._batch_chunk(N) * S))
+        win = windows[0].new_zeros((N, Tp, *windows[0].shape[1:]))
+        pose = np.zeros((N, Tp, 6), np.float32)
+        for i, w in enumerate(windows):
+            win[i, :w.shape[0]] = w
+            pose[i, :w.shape[0]] = prepare_pose_np(poses[i], w.shape[0],
+                                                   smooth=o.smooth_pose)
+        sources = torch.as_tensor(np.asarray(source_images, np.float32),
+                                  device=dev).permute(0, 3, 1, 2)
+        return T, sources, win, torch.as_tensor(pose, device=dev)
+
+    @torch.no_grad()
+    def batch_keypoints(self, sources: torch.Tensor, windows: torch.Tensor,
+                        pose: torch.Tensor):
+        """N neutral clips at once: sources [N,3,256,256], windows
+        [N,Tp,28,12], pose [N,Tp,6] -> (driving kp [N, Tp, ...], one-euro
+        smoothed per identity along time, source kp [N, ...]).  As in the
+        JAX pipeline's batch, the keypoints are not normalized."""
+        o, m = self.options, self.models
+        N, Tp = windows.shape[:2]
+        kp_source = m["kp_detector"](sources)
+        deco = m["audio_feature"](sources, windows, pose,
+                                  audio_weight=o.audio_weight)
+        kp_audio = m["kp_detector_a"](deco.flatten(0, 1))      # over N * Tp
+        driving = {k: one_euro_filter(
+            v.view(N, Tp, *v.shape[1:]).transpose(0, 1), mincutoff=0.05,
+            beta=8.0, freq=100, scale=10.0).transpose(0, 1)
+            for k, v in kp_audio.items()}
+        return driving, kp_source
+
+    @torch.no_grad()
+    def _batch_segments(self, source_images, waveforms, poses):
+        """The batched whole-clip route: yields (start frame, payload on the
+        host, each [N, k, ...]) per segment (``_segments``), decoded in
+        chunks of ``_batch_chunk(N)`` frames an identity."""
+        S = max(1, self.options.overlap_segments)
+        T, sources, windows, pose = self._prepare_batch(source_images,
+                                                        waveforms, poses)
+        driving, kp_source = self.batch_keypoints(sources, windows, pose)
+        src, feats = self.source_features(sources)
+        F = self._batch_chunk(src.shape[0])
+        yield from self._segments(T, windows.shape[1] // S, lambda a, b: (
+            self.decode_frames(src, feats, driving, kp_source, a, b, F)),
+            axis=1)
+
+    def render_batch_uint8(self, source_images, waveforms,
+                           poses) -> np.ndarray:
+        """N identities' neutral clips at once: source_images
+        [N,256,256,3], waveforms and poses lists of N -> uint8
+        [N, T_max, 256, 256, 3]; frames past a clip's own length are its
+        padded tail."""
+        if self._yuv:
+            return yuv420_to_rgb(*self.render_batch_yuv420(
+                source_images, waveforms, poses))
+        return self._join(self._batch_segments(source_images, waveforms,
+                                               poses), axis=1)[0]
+
+    def render_batch_yuv420(self, source_images, waveforms, poses):
+        """``render_batch_uint8`` as yuv420p planes: (Y [N,T_max,256,256],
+        U, V [N,T_max,128,128]) uint8 on the host.  Needs transfer_format
+        'yuv420'."""
+        if not self._yuv:
+            raise ValueError(
+                "render_batch_yuv420 requires transfer_format='yuv420'")
+        return self._join(self._batch_segments(source_images, waveforms,
+                                               poses), axis=1)
 
     # -------------------------------------------------------- constructors
 

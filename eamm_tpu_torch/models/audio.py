@@ -55,19 +55,38 @@ class ATNet(nn.Module):
             out = block(out)
         return out.flatten(1)
 
-    def forward(self, example_image: torch.Tensor, audio: torch.Tensor,
-                pose: torch.Tensor, audio_weight: float = 1.0
-                ) -> torch.Tensor:
-        """example_image [B,3,256,256], audio [B,T,28,12], pose [B,T,6] ->
-        [B, T, 35, 64, 64]."""
+    def window_features(self, image_feature: torch.Tensor,
+                        audio: torch.Tensor, pose: torch.Tensor,
+                        audio_weight: float = 1.0, carry=None,
+                        return_carry: bool = False):
+        """Identity feature [B, 512], audio [B,T,28,12], pose [B,T,6] ->
+        [B, T, 35, 64, 64].  ``carry`` is the LSTM's (h, c), each
+        [3, B, 256] (None: zeros); with ``return_carry`` the final (h, c)
+        comes back too, so chunks of windows threaded through it give the
+        maps of the whole sequence."""
         B, T = audio.shape[:2]
-        image_feature = self.encode_image(example_image)
         audio_feature = self.audio_eocder_fc(
             self.audio_eocder(audio.reshape(B * T, 1, *audio.shape[2:]))
             .flatten(1)).view(B, T, -1) * audio_weight
         pose_feature = self.pose_encoder(pose.reshape(B * T, -1)).view(B, T, -1)
         lstm_in = torch.cat([image_feature[:, None].expand(B, T, -1),
                              audio_feature, pose_feature], dim=-1)
-        lstm_out, _ = self.lstm(lstm_in)                  # [B, T, 256]
+        lstm_out, carry = self.lstm(lstm_in, carry)       # [B, T, 256]
         deco = self.decon(lstm_out.reshape(B * T, -1, 1, 1))
-        return deco.view(B, T, *deco.shape[1:])
+        deco = deco.view(B, T, *deco.shape[1:])
+        return (deco, carry) if return_carry else deco
+
+    def zero_carry(self, batch: int, dtype: torch.dtype = torch.float32,
+                   device=None) -> tuple:
+        """The LSTM's zero (h, c) for ``batch`` sequences."""
+        shape = (self.lstm.num_layers, batch, self.lstm.hidden_size)
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+
+    def forward(self, example_image: torch.Tensor, audio: torch.Tensor,
+                pose: torch.Tensor, audio_weight: float = 1.0
+                ) -> torch.Tensor:
+        """example_image [B,3,256,256], audio [B,T,28,12], pose [B,T,6] ->
+        [B, T, 35, 64, 64]."""
+        return self.window_features(self.encode_image(example_image), audio,
+                                    pose, audio_weight)

@@ -28,7 +28,9 @@ def keypoint_heads(feature_map: torch.Tensor, kp: nn.Conv2d,
     K = kp.out_channels
     weight = torch.cat([kp.weight, jacobian.weight])
     bias = torch.cat([kp.bias, jacobian.bias])
-    y = F.conv2d(feature_map, weight, bias)                     # [B, 5K, h, w]
+    # a channels_last feature map (N sources of a batched render) gives a
+    # channels_last output, whose h*w rows the kernel cannot read in place
+    y = F.conv2d(feature_map, weight, bias).contiguous()        # [B, 5K, h, w]
     B, _, h, w = y.shape
     value, jac = kp_expectation(y[:, :K], y[:, K:].view(B, K, 4, h, w),
                                 temperature)

@@ -19,6 +19,15 @@ def gaussian_kernel_1d(sigma: float = 1.5) -> np.ndarray:
     return (taps / taps.sum()).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _taps(sigma: float, dtype: torch.dtype, device: torch.device
+          ) -> torch.Tensor:
+    """``gaussian_kernel_1d`` on ``device``, uploaded once (an upload from
+    pageable memory would wait for the device's queue)."""
+    return torch.as_tensor(gaussian_kernel_1d(sigma), dtype=dtype,
+                           device=device)
+
+
 def antialias_downsample(x: torch.Tensor, scale: float,
                          sigma: float = 1.5) -> torch.Tensor:
     """[B, H, W, C] -> [B, H*scale, W*scale, C]; scale 1 is the identity.
@@ -27,8 +36,7 @@ def antialias_downsample(x: torch.Tensor, scale: float,
     ``int(1 / scale)``-th pixel."""
     if scale == 1.0:
         return x
-    taps = torch.as_tensor(gaussian_kernel_1d(sigma), dtype=x.dtype,
-                           device=x.device)
+    taps = _taps(sigma, x.dtype, x.device)
     k = taps.numel()
     C = x.shape[-1]
     xc = x.permute(0, 3, 1, 2)

@@ -21,15 +21,33 @@ def _alpha(cutoff, freq: float):
     return 1.0 / (1.0 + tau / te)
 
 
+def one_euro_init(shape, dtype: torch.dtype = torch.float32,
+                  device=None) -> tuple:
+    """A fresh filter state for samples of ``shape``: (raw, filtered,
+    derivative, started), the first three in the scaled domain."""
+    zeros = torch.zeros(shape, dtype=dtype, device=device)
+    return (zeros, zeros, zeros,
+            torch.zeros(shape, dtype=torch.bool, device=device))
+
+
 def one_euro_filter(x: torch.Tensor, *, mincutoff: float = 1.0,
                     beta: float = 0.0, dcutoff: float = 1.0,
-                    freq: float = 30.0, scale: float = 1.0) -> torch.Tensor:
+                    freq: float = 30.0, scale: float = 1.0, carry=None,
+                    return_carry: bool = False):
     """Filter a [T, ...] tensor along its leading (time) axis; a loop over
-    T on the tensor's device."""
+    T on the tensor's device.
+
+    ``carry`` is the state a call with ``return_carry=True`` returned (or
+    ``one_euro_init``): filtering a sequence in chunks with the state
+    threaded through gives the whole sequence's result bit for bit, since
+    every step after a chunk's first is the whole sequence's step and the
+    first selects it wherever the state has started."""
     xs = x * scale
     d_alpha = _alpha(dcutoff, freq)
     out = torch.empty_like(xs)
-    prev_raw = prev_filt = prev_dfilt = None
+    prev_raw = prev_filt = prev_dfilt = started = None
+    if carry is not None:
+        prev_raw, prev_filt, prev_dfilt, started = carry
     for t in range(xs.shape[0]):
         xt = xs[t]
         if prev_raw is None:
@@ -40,9 +58,17 @@ def one_euro_filter(x: torch.Tensor, *, mincutoff: float = 1.0,
             edx = d_alpha * dx + (1.0 - d_alpha) * prev_dfilt
             a = _alpha(mincutoff + beta * edx.abs(), freq)
             s = a * xt + (1.0 - a) * prev_filt
+            if started is not None:      # a carried state: fresh where unset
+                edx = torch.where(started, edx, torch.zeros_like(xt))
+                s = torch.where(started, s, xt)
+                started = None
         prev_raw, prev_filt, prev_dfilt = xt, s, edx
         out[t] = s
-    return out / scale
+    ys = out / scale
+    if not return_carry:
+        return ys
+    return ys, (prev_raw, prev_filt, prev_dfilt,
+                torch.ones(xs.shape[1:], dtype=torch.bool, device=xs.device))
 
 
 def one_euro_filter_np(x: np.ndarray, *, mincutoff: float = 1.0,

@@ -78,26 +78,47 @@ def num_windows(n_mfcc_frames: int) -> int:
     return max(0, n_mfcc_frames // 4 - 6)
 
 
-def mfcc(signal: torch.Tensor) -> torch.Tensor:
-    """[N] signal -> [num_mfcc_frames(N), 13] float32 MFCC rows."""
-    signal = signal.float()
-    n = signal.shape[0]
-    emph = torch.cat([signal[:1], signal[1:] - 0.97 * signal[:-1]])
-    nframes = num_mfcc_frames(n)
-    padlen = (nframes - 1) * WIN_STEP + WIN_LEN
-    emph = torch.nn.functional.pad(emph, (0, max(0, padlen - n)))
+@functools.lru_cache(maxsize=None)
+def _tables(device: torch.device) -> tuple:
+    """The filterbank, DCT and lifter on ``device``, uploaded once (an
+    upload from pageable memory would wait for the device's queue)."""
+    return tuple(torch.from_numpy(t).to(device)
+                 for t in (mel_filterbank(), dct_matrix(), lifter_taps()))
+
+
+def _mfcc_from_emph(emph: torch.Tensor, nframes: int) -> torch.Tensor:
+    """Pre-emphasized samples (at least ``(nframes - 1) * WIN_STEP +
+    WIN_LEN`` of them) -> [nframes, 13] MFCC rows.  Row r reads
+    emph[r * WIN_STEP : r * WIN_STEP + WIN_LEN] and nothing else, so rows
+    computed from a slice equal those of the whole signal."""
+    fbank, dct, lifter = _tables(emph.device)
     frames = emph.unfold(0, WIN_LEN, WIN_STEP)[:nframes]
     spec = torch.fft.rfft(frames, n=NFFT, dim=1)
     pspec = (spec.real ** 2 + spec.imag ** 2) / NFFT
     energy = pspec.sum(dim=1)
     energy = torch.where(energy == 0, _EPS32, energy)
-    dev = signal.device
-    feat = pspec @ torch.from_numpy(mel_filterbank()).to(dev).T
+    feat = pspec @ fbank.T
     feat = torch.log(torch.where(feat == 0, _EPS32, feat))
-    feat = feat @ torch.from_numpy(dct_matrix()).to(dev)
-    feat = feat * torch.from_numpy(lifter_taps()).to(dev)
+    feat = feat @ dct
+    feat = feat * lifter
     feat[:, 0] = torch.log(energy)
     return feat
+
+
+def _pre_emphasis(x: torch.Tensor) -> torch.Tensor:
+    """x[t] - 0.97 x[t - 1] for t >= 1 (x[0] is the sample before)."""
+    return x[1:] - 0.97 * x[:-1]
+
+
+def mfcc(signal: torch.Tensor) -> torch.Tensor:
+    """[N] signal -> [num_mfcc_frames(N), 13] float32 MFCC rows."""
+    signal = signal.float()
+    n = signal.shape[0]
+    emph = torch.cat([signal[:1], _pre_emphasis(signal)])
+    nframes = num_mfcc_frames(n)
+    padlen = (nframes - 1) * WIN_STEP + WIN_LEN
+    emph = torch.nn.functional.pad(emph, (0, max(0, padlen - n)))
+    return _mfcc_from_emph(emph, nframes)
 
 
 def mfcc_windows(feats: torch.Tensor) -> torch.Tensor:
@@ -125,3 +146,37 @@ def min_samples_for_windows(t: int) -> int:
     while num_windows_for_samples(n) < t:       # guard the ceil boundary
         n += WIN_STEP
     return n
+
+
+# A chunk of K windows from window t0 reads MFCC rows 4 t0 .. 4 (t0 + K) + 23,
+# so one contiguous slice of the padded signal of a length fixed by K, plus
+# the sample before it for the pre-emphasis (zero at the clip start, where
+# the rule y[0] = x[0] gives the same on the zero pad).  Over one zero-padded
+# buffer the chunks' windows are the whole clip's: every step after the
+# pre-emphasis is row-local.
+
+def chunk_samples_len(k_windows: int) -> int:
+    """Samples a ``mfcc_window_chunk`` of ``k_windows`` windows reads."""
+    return (4 * k_windows + 23) * WIN_STEP + WIN_LEN
+
+
+def chunk_sample_start(t0: int) -> int:
+    """Offset in the padded buffer of the chunk starting at window ``t0``."""
+    return 4 * t0 * WIN_STEP
+
+
+def padded_buffer_len(n_windows: int) -> int:
+    """Length of a padded buffer that holds the chunks of ``n_windows``."""
+    return chunk_sample_start(n_windows) + chunk_samples_len(0)
+
+
+def mfcc_window_chunk(samples: torch.Tensor, prev_sample,
+                      k_windows: int) -> torch.Tensor:
+    """[chunk_samples_len(K)] samples of the padded buffer, and the sample
+    before them (a number or a 1-element tensor) -> [K, 28, 12] windows,
+    the matching rows of ``audio_to_mfcc_windows`` on that buffer."""
+    samples = samples.float()
+    prev = torch.as_tensor(prev_sample, dtype=torch.float32,
+                           device=samples.device).reshape(1)
+    emph = _pre_emphasis(torch.cat([prev, samples]))
+    return mfcc_windows(_mfcc_from_emph(emph, 4 * k_windows + 24))
