@@ -37,10 +37,10 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    first decode chunk of a neutral 10 s request and of the batched render
    of 4 identities (4 sources, Bi = 4).
 4. CPU vs card: the same seeded weights and clip rendered by the port on
-   the CPU (plain versions) and on the card (kernels) in float32, neutral
-   at TINY_CONFIG widths and emotional (5 emotion frames) at
-   EMOTION_TINY_CONFIG; per-frame mean |difference| max < 1e-2, mean
-   < 3e-3.
+   the CPU (plain versions) and on the card (kernels) in float32 at
+   EMOTION_TINY_CONFIG (TINY_CONFIG's render models), neutral and
+   emotional (5 emotion frames); per-frame mean |difference| max < 1e-2,
+   mean < 3e-3.
 5. main paths, each at FULL_CONFIG (the emotion model at the reference's
    hard-coded widths), bfloat16, frame_chunk 32, time_bucket 32, after one
    warm-up request per route; per request the frames, wall seconds, fps and each
@@ -80,6 +80,32 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    - entry points: the shared warp and the fused keypoint expectation,
      which no model calls, once each at the shapes of phase 6.
    Peak device memory of each path.
+5b. serving, at FULL_CONFIG from the main path's weights:
+   - checkpoints: the five models saved as the reference's three
+     ``.pth.tar`` files (a ``module.`` prefix, an optimizer's state and an
+     epoch in the FOMM file, Emotion_k's ``final_4`` stack in the emotion
+     file), each passed by the preflight, loaded back through
+     ``from_torch_checkpoints``, every tensor bitwise the original;
+   - the server of ``cli/serve.py`` (``main``, or ``serve`` with the
+     config dict where PyYAML does not import) on the card over HTTP on
+     loopback: bf16, yuv420, max_batch 4, max_delay 50 ms, segment_frames
+     128, stream policy 384 frames, warmed by --warmup_seconds 4; from
+     concurrent client threads 8 neutral 4 s requests (two dispatches of
+     4), then 3 (one dispatch padded to 4), then at once 2 emotional 4 s
+     requests through a ``PUT /emotion`` id, one with raw uint8 frames, a
+     10 s ``/render_stream`` and a 20 s request (the unbounded chunks).
+     Every call the worker made is made again on this thread and held to
+     its result bit for bit, each client's payload to its part of it; the
+     stats' dispatches and occupancy as predicted; requests and frames per
+     second, latency per route (p50, max), the stream's first segment,
+     peak device memory, and a padded (3 + 1) against a full dispatch of
+     4 (wall ms in turns); K1-K3 launches per route;
+   - the demo of ``cli/demo.py`` on the checkpoints (--bf16 --no_crop
+     --no_align, a 4 s wav, a pose track and a uint8 emotion clip as
+     files), as is and with --adapt_scale: neutral and emotional frames
+     bitwise ``render_uint8`` on the demo's pipeline, the adapt_scale
+     scale within 1e-6 of the convex-hull ratio (and the keypoints'
+     difference between two calls), launches per run.
 6. kernel times at the main-path shapes: the kernel, its plain version,
    one PyTorch library call computing the same function where there is
    one, and the bound (the larger of bytes at 3.35 TB/s and operations at
@@ -99,16 +125,20 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    The plain versions are timed eager.
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line
-(with the path whose launches each row counts, and the launches on every
-request by path), and last
+(with the path whose launches each row counts, the launches on every
+request by path and on every serving route), and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -120,6 +150,7 @@ from eamm_tpu_torch import kernels
 from eamm_tpu_torch.infer import EammPipeline, PipelineOptions
 from eamm_tpu_torch.infer.pipeline import reset_parameters
 from eamm_tpu_torch.ops.colorspace import yuv420_to_rgb
+from eamm_tpu_torch.ops.mfcc import num_windows_for_samples
 from eamm_tpu_torch.ops import kp_expectation as kpx
 from eamm_tpu_torch.ops import warp_cuda
 
@@ -403,30 +434,34 @@ def parity(cases: list, worst: dict | None = None) -> dict:
 
 # ---------------------------------------------------------------- phase 4
 
-def cpu_vs_device(device: str = "cuda", seed: int = 0,
-                  emotion: bool = False) -> dict:
-    """The same seeded pipeline and 1 s clip rendered on the CPU and on
-    ``device``, neutral at TINY_CONFIG or, with ``emotion``, emotional at
-    EMOTION_TINY_CONFIG with 5 emotion frames; raises unless per-frame
-    mean |difference| has max < 1e-2 and mean < 3e-3."""
-    config = EMOTION_TINY_CONFIG if emotion else TINY_CONFIG
+def cpu_vs_device(device: str = "cuda", seed: int = 0) -> dict:
+    """The same seeded pipeline at EMOTION_TINY_CONFIG (TINY_CONFIG's four
+    render models, drawn before the emotion model) built on the CPU and on
+    ``device``; the same 1 s clip rendered on both, neutral and emotional
+    with 5 emotion frames -> {'neutral', 'emotional'} results; raises
+    unless each render's per-frame mean |difference| has max < 1e-2 and
+    mean < 3e-3."""
     opts = dict(frame_chunk=8, time_bucket=8)
-    cpu = EammPipeline.from_random(config, seed,
+    cpu = EammPipeline.from_random(EMOTION_TINY_CONFIG, seed,
                                    PipelineOptions(device="cpu", **opts))
-    dev = EammPipeline.from_random(config, seed,
+    dev = EammPipeline.from_random(EMOTION_TINY_CONFIG, seed,
                                    PipelineOptions(device=device, **opts))
     src, wav, pose = clip_inputs(1.0, seed)
-    video = emotion_clip(5, seed) if emotion else None
-    a = cpu.render(src, wav, pose, video, add_emo=emotion)
-    b = dev.render(src, wav, pose, video, add_emo=emotion)
-    if a.shape != b.shape:
-        raise AssertionError(f"shapes differ: {a.shape} vs {b.shape}")
-    l1 = np.abs(a - b).mean(axis=(1, 2, 3))
-    result = {"emotion": emotion, "frames": int(a.shape[0]),
-              "l1_max": float(l1.max()), "l1_mean": float(l1.mean())}
-    if not (l1.max() < 1e-2 and l1.mean() < 3e-3):
-        raise AssertionError(f"CPU vs {device} render differs: {result}")
-    return result
+    results = {}
+    for name, video in (("neutral", None),
+                        ("emotional", emotion_clip(5, seed))):
+        emotion = video is not None
+        a = cpu.render(src, wav, pose, video, add_emo=emotion)
+        b = dev.render(src, wav, pose, video, add_emo=emotion)
+        if a.shape != b.shape:
+            raise AssertionError(f"shapes differ: {a.shape} vs {b.shape}")
+        l1 = np.abs(a - b).mean(axis=(1, 2, 3))
+        result = {"emotion": emotion, "frames": int(a.shape[0]),
+                  "l1_max": float(l1.max()), "l1_mean": float(l1.mean())}
+        if not (l1.max() < 1e-2 and l1.mean() < 3e-3):
+            raise AssertionError(f"CPU vs {device} render differs: {result}")
+        results[name] = result
+    return results
 
 
 # ---------------------------------------------------------------- phase 5
@@ -854,6 +889,559 @@ def entry_points() -> dict:
     return launches
 
 
+# ------------------------------------------------ phase 5b: serving
+
+SERVE_SECONDS = 4.0             # the neutral and emotional requests
+SERVE_STREAM_SECONDS = 10.0     # one POST /render_stream
+SERVE_LONG_SECONDS = 20.0       # 500 frames, past the 384-frame policy
+SERVE_ARGV = ["--host", "127.0.0.1", "--port", "0", "--max_batch", "4",
+              "--max_delay_ms", "50", "--transfer_format", "yuv420",
+              "--segment_frames", "128", "--stream_policy_frames", "384",
+              "--warmup_seconds", "4"]
+# the demo config's mouth mask (configs/demo.yaml), the augmentation the
+# demo draws the emotion frames through
+DEMO_AUGMENTATION = {"crop_mouth_param": {"center_x": 135, "center_y": 190,
+                                          "mask_width": 100,
+                                          "mask_height": 60}}
+SERVE_ROUTES = ("coalesced", "padded", "emotional_id", "emotional_uint8",
+                "stream", "unbounded", "demo", "demo_adapt_scale")
+
+
+def importable(name: str) -> bool:
+    try:
+        __import__(name)
+    except ImportError:
+        return False
+    return True
+
+
+def save_checkpoints(models: dict, directory: str) -> dict:
+    """The five models as the reference's three ``.pth.tar`` files, as the
+    reference trainer leaves them: the FOMM file's generator under
+    DataParallel's ``module.`` prefix, with an optimizer's state and an
+    epoch number; the emotion file with Emotion_k's ``final_4`` stack ->
+    {'fomm', 'audio', 'emo'} paths."""
+    sd = {k: {n: t.cpu() for n, t in m.state_dict().items()}
+          for k, m in models.items()}
+    emo = dict(sd["emo_detector"])
+    for i in (0, 3):
+        for p in ("weight", "bias"):
+            emo[f"final_4.{i}.{p}"] = emo[f"final.{i}.{p}"] + 1.0
+    opt = torch.optim.Adam(models["kp_detector"].parameters())
+    files = {
+        "fomm": {"generator": {f"module.{k}": v
+                               for k, v in sd["generator"].items()},
+                 "kp_detector": sd["kp_detector"],
+                 "optimizer_kp_detector": opt.state_dict(), "epoch": 7},
+        "audio": {"audio_feature": sd["audio_feature"],
+                  "kp_detector_a": sd["kp_detector_a"]},
+        "emo": {"emo_detector": emo},
+    }
+    paths = {}
+    for name, ckpt in files.items():
+        paths[name] = os.path.join(directory, f"{name}.pth.tar")
+        torch.save(ckpt, paths[name])
+    return paths
+
+
+def checkpoint_path(pipe: EammPipeline, directory: str,
+                    device: str = "cuda") -> dict:
+    """Save ``pipe``'s models as the reference's checkpoints, check each
+    with the preflight (ok, nothing fatal), load them back through
+    ``from_torch_checkpoints`` and hold every state_dict to the original's
+    bit for bit -> the paths."""
+    from eamm_tpu_torch.compat.preflight import check_state_dict
+    paths = save_checkpoints(pipe.models, directory)
+    reports = {name: check_state_dict(path) for name, path in paths.items()}
+    loaded = EammPipeline.from_torch_checkpoints(
+        FULL_CONFIG, paths["fomm"], paths["audio"], paths["emo"],
+        PipelineOptions(device=device))
+    tensors = 0
+    for name, model in pipe.models.items():
+        ref, got = model.state_dict(), loaded.models[name].state_dict()
+        if ref.keys() != got.keys() or not all(
+                torch.equal(ref[k], got[k]) for k in ref):
+            raise AssertionError(f"{name}: the loaded state_dict differs")
+        tensors += len(ref)
+    emit("checkpoints", files={k: os.path.getsize(p)
+                               for k, p in paths.items()},
+         preflight={k: {"ok": r.ok, "fatal": r.fatal,
+                        "modules": [m.name for m in r.modules],
+                        "skipped": r.skipped} for k, r in reports.items()},
+         ignored_keys=loaded.ignored_keys, tensors_equal=tensors)
+    if not all(r.ok and not r.fatal for r in reports.values()):
+        raise AssertionError(f"preflight: {[str(r) for r in reports.values()]}")
+    return paths
+
+
+class Recorder:
+    """Wraps the render methods the server calls on ``pipe`` (instance
+    attributes shadow the class's): each call's method, arguments, result,
+    wall seconds and kernel launches.  Only the server's worker thread
+    launches kernels while it runs, so a call's launch delta is its own."""
+
+    METHODS = ("render_batch_yuv420", "render_yuv420")
+
+    def __init__(self, pipe: EammPipeline):
+        self.pipe, self.calls = pipe, []
+        self.original = {m: getattr(pipe, m)
+                         for m in (*self.METHODS, "render_stream")}
+        for m in self.METHODS:
+            setattr(pipe, m, self._wrap(m))
+        pipe.render_stream = self._wrap_stream
+
+    def _record(self, method, args, kwargs, result, before, t0):
+        after = launch_counts()
+        self.calls.append({"method": method, "args": args, "kwargs": kwargs,
+                           "result": result,
+                           "wall": time.perf_counter() - t0,
+                           "launches": {k: after[k] - before[k]
+                                        for k in after}})
+
+    def _wrap(self, method):
+        def call(*args, **kwargs):
+            before, t0 = launch_counts(), time.perf_counter()
+            out = self.original[method](*args, **kwargs)
+            self._record(method, args, kwargs, out, before, t0)
+            return out
+        return call
+
+    def _wrap_stream(self, *args, **kwargs):
+        before, t0 = launch_counts(), time.perf_counter()
+        parts = []
+        for start, payload in self.original["render_stream"](*args,
+                                                              **kwargs):
+            parts.append((start, payload))
+            yield start, payload
+        self._record("render_stream", args, kwargs, parts, before, t0)
+
+    def replay(self, call):
+        """The recorded call made again, on this thread."""
+        out = self.original[call["method"]](*call["args"], **call["kwargs"])
+        return list(out) if call["method"] == "render_stream" else out
+
+
+def _planes(payload) -> tuple:
+    return tuple(payload[k] for k in ("y", "u", "v"))
+
+
+def post(url: str, body: bytes, method: str = "POST"):
+    """One HTTP request -> (the decoded npz or JSON, seconds)."""
+    import urllib.request
+    from eamm_tpu_torch.serve_http import decode_response
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(urllib.request.Request(
+            url, data=body, method=method), timeout=600) as resp:
+        raw = resp.read()
+    seconds = time.perf_counter() - t0
+    if resp.headers.get("Content-Type") == "application/json":
+        return json.loads(raw), seconds
+    return decode_response(raw), seconds
+
+
+def post_stream(url: str, body: bytes):
+    """POST /render_stream -> (segments, seconds to the first, seconds)."""
+    import urllib.request
+    from eamm_tpu_torch.serve_http import iter_stream
+    t0 = time.perf_counter()
+    segs, first = [], None
+    with urllib.request.urlopen(urllib.request.Request(
+            url, data=body, method="POST"), timeout=600) as resp:
+        for seg in iter_stream(resp):
+            first = first or time.perf_counter() - t0
+            segs.append(seg)
+    return segs, first, time.perf_counter() - t0
+
+
+def concurrently(jobs: dict) -> tuple[dict, float]:
+    """name -> zero-argument callable, all started at once behind a
+    barrier, each on its own thread -> (name -> its result, wall
+    seconds); raises the first failure."""
+    barrier = threading.Barrier(len(jobs) + 1)
+    results, errors = {}, []
+
+    def run(name, fn):
+        barrier.wait()
+        try:
+            results[name] = fn()
+        except BaseException as e:          # re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=item) for item in
+               jobs.items()]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results, time.perf_counter() - t0
+
+
+def served_by(calls: list, wav: np.ndarray) -> tuple[dict, int | None]:
+    """The recorded call that served the request of ``wav``, and its row
+    in a batch call (None for a call of one clip)."""
+    for call in calls:
+        if call["method"] == "render_batch_yuv420":
+            for i, w in enumerate(call["args"][1]):
+                if np.array_equal(w, wav):
+                    return call, i
+        elif np.array_equal(call["args"][1], wav):
+            return call, None
+    raise AssertionError("no recorded call served the request")
+
+
+def serving_path(paths: dict, device: str = "cuda") -> dict:
+    """The server of ``cli/serve.py`` on the card, over HTTP on loopback,
+    built from the checkpoints and warmed by --warmup_seconds; three
+    rounds of concurrent client threads: 8 neutral 4 s requests (two
+    coalesced dispatches of 4), 3 neutral 4 s requests (one dispatch
+    padded to 4), then 2 emotional 4 s requests through a ``PUT
+    /emotion`` id, one with raw uint8 frames, a 10 s stream and a 20 s
+    request (the unbounded chunks) at once.  Every result is held bit for
+    bit to the same call made again on this thread, and each client's
+    payload to its part of it -> route -> K1-K3 launches."""
+    from eamm_tpu_torch.cli import serve as serve_cli
+    from eamm_tpu_torch.serve_http import (encode_emotion_registration,
+                                           encode_request)
+    argv = ["--config", paths.get("config") or "", "--checkpoint",
+            paths["fomm"], "--audio_checkpoint", paths["audio"],
+            "--emo_checkpoint", paths["emo"], *SERVE_ARGV,
+            *(["--cpu"] if device == "cpu" else [])]
+    fronts, stop = [], threading.Event()
+    ready = threading.Event()
+
+    def on_ready(front):
+        fronts.append(front)
+        ready.set()
+
+    def run():
+        if paths.get("config"):
+            serve_cli.main(argv, stop_event=stop, ready=on_ready)
+        else:             # no PyYAML: what main runs after reading the file
+            serve_cli.serve(serve_cli.build_parser().parse_args(argv),
+                            FULL_CONFIG, stop_event=stop, ready=on_ready)
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    while not ready.wait(1.0):
+        if not thread.is_alive():
+            raise AssertionError("the server did not start")
+    front = fronts[0]
+    server, pipe = front.server, front.server.pipeline
+    emit("serve_setup", seconds=time.perf_counter() - t0, url=front.url,
+         via="main" if paths.get("config") else "serve",
+         options=dataclasses.asdict(pipe.options) | {
+             "compute_dtype": str(pipe.options.compute_dtype)})
+    rec = Recorder(pipe)
+    url = front.url
+    arrivals = []                # when each /render reached the server
+    submit = server.submit
+
+    def timed_submit(*args, **kwargs):
+        arrivals.append(time.perf_counter())
+        return submit(*args, **kwargs)
+
+    server.submit = timed_submit
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    reports, clients = {}, {}
+    try:
+        for name, n, seed in (("coalesced", 8, 300), ("padded", 3, 320)):
+            server.reset_stats()
+            start, arrived = len(rec.calls), len(arrivals)
+            reqs = {f"{name}{i}": clip_inputs(SERVE_SECONDS, seed + i)
+                    for i in range(n)}
+            bodies = {k: encode_request(*r) for k, r in reqs.items()}
+            out, wall = concurrently({
+                k: (lambda b=b: post(url + "/render", b))
+                for k, b in bodies.items()})
+            stats, _ = post(url + "/stats", None, "GET")
+            times = sorted(arrivals[arrived:])
+            reports[name] = {"requests": n, "wall_seconds": wall,
+                             "stats": stats,
+                             "calls": len(rec.calls) - start,
+                             "group_sizes": [
+                                 len(c["args"][0]) - sum(
+                                     np.array_equal(x, c["args"][0][0])
+                                     for x in c["args"][0][1:])
+                                 for c in rec.calls[start:]],
+                             "arrival_offsets_ms": [
+                                 1e3 * (t - times[0]) for t in times]}
+            clients[name] = (reqs, out, rec.calls[start:])
+            want = (2, 4.0) if n == 8 else (1, 3.0)
+            if (stats["dispatches"], stats["mean_batch_occupancy"]) != want:
+                raise AssertionError(f"{name}: {reports[name]}, expected "
+                                     f"{want}")
+        server.reset_stats()
+        start = len(rec.calls)
+        video = emotion_clip(EMOTION_FRAMES, 7)
+        registered, _ = post(url + "/emotion", encode_emotion_registration(
+            "style", video), "PUT")
+        u8 = (emotion_clip(EMOTION_FRAMES, 8) * 255).astype(np.uint8)
+        mixed = {"emotional_id.0": clip_inputs(SERVE_SECONDS, 340),
+                 "emotional_id.1": clip_inputs(SERVE_SECONDS, 341),
+                 "emotional_uint8": clip_inputs(SERVE_SECONDS, 342),
+                 "stream": clip_inputs(SERVE_STREAM_SECONDS, 343),
+                 "unbounded": clip_inputs(SERVE_LONG_SECONDS, 344)}
+        bodies = {k: encode_request(*r, emotion_id="style")
+                  for k, r in mixed.items() if k.startswith("emotional_id")}
+        bodies["emotional_uint8"] = encode_request(
+            *mixed["emotional_uint8"], transformed=u8)
+        bodies["unbounded"] = encode_request(*mixed["unbounded"])
+        stream_body = encode_request(*mixed["stream"])
+        jobs = {k: (lambda b=b: post(url + "/render", b))
+                for k, b in bodies.items()}
+        jobs["stream"] = lambda: post_stream(url + "/render_stream",
+                                             stream_body)
+        out, wall = concurrently(jobs)
+        stats, _ = post(url + "/stats", None, "GET")
+        reports["mixed"] = {"requests": len(jobs), "wall_seconds": wall,
+                            "stats": stats, "emotion_frames":
+                            registered["frames"],
+                            "calls": len(rec.calls) - start}
+        clients["mixed"] = (mixed, out, rec.calls[start:])
+        if (stats["dispatches"], stats["mean_batch_occupancy"]) != (5, 1.0):
+            raise AssertionError(f"mixed: {stats}, expected 5 singletons")
+        peak = torch.cuda.max_memory_allocated()
+        launches = launch_counts()
+    finally:
+        stop.set()
+        thread.join(120)
+    if thread.is_alive():
+        raise AssertionError("the server did not stop")
+    return hold_served(rec, clients, reports, peak, launches)
+
+
+def hold_served(rec: Recorder, clients: dict, reports: dict, peak: int,
+                launches: dict) -> dict:
+    """Every recorded call made again on this thread, bitwise its recorded
+    result; each client's payload bitwise its part of it; the latency and
+    throughput lines; the padded against the full dispatch -> route ->
+    K1-K3 launches."""
+    for call in rec.calls:
+        again = rec.replay(call)
+        if call["method"] == "render_stream":
+            for (s0, p0), (s1, p1) in zip(call["result"], again, strict=True):
+                same_bits(p0, p1, f"stream segment {s0}")
+        else:
+            same_bits(call["result"], again, call["method"])
+    by_route, latency, frames_total = {}, {}, 0
+    for round_name, (reqs, out, calls) in clients.items():
+        frames_round = 0
+        for key, req in reqs.items():
+            route = key.split(".")[0] if round_name == "mixed" \
+                else round_name
+            call, row = served_by(calls, req[1])
+            T = num_windows_for_samples(len(req[1]))
+            if route == "stream":
+                segs, first, seconds = out[key]
+                got = tuple(np.concatenate([s[k] for s in segs])
+                            for k in ("y", "u", "v"))
+                want = tuple(np.concatenate([p[i] for _, p in
+                                             call["result"]])
+                             for i in range(3))
+                latency.setdefault("stream_first_segment", []).append(first)
+            else:
+                payload, seconds = out[key]
+                got = _planes(payload)
+                if row is not None:
+                    want = tuple(p[row, :T] for p in call["result"])
+                else:
+                    want = tuple(p[:T] for p in call["result"])
+            same_bits(got, want, f"{key}: client payload")
+            frames_out(got)
+            frames_round += T
+            latency.setdefault(route, []).append(seconds)
+            by_route.setdefault(route, call["launches"])
+        frames_total += frames_round
+        reports[round_name].update(
+            frames=frames_round,
+            requests_per_s=reports[round_name]["requests"]
+            / reports[round_name]["wall_seconds"],
+            frames_per_s=frames_round / reports[round_name]["wall_seconds"])
+    # the dispatches' own calls, by what they did
+    padded = [c for c in clients["padded"][2]
+              if c["method"] == "render_batch_yuv420"]
+    full = [c for c in clients["coalesced"][2]
+            if c["method"] == "render_batch_yuv420"]
+    if len(padded) != 1 or len(full) != 2:
+        raise AssertionError(f"batch calls: {len(padded)} padded, "
+                             f"{len(full)} full")
+    srcs = padded[0]["args"][0]
+    distinct = [s for i, s in enumerate(srcs)
+                if not any(np.array_equal(s, t) for t in srcs[:i])]
+    if len(srcs) != 4 or len(distinct) != 3 or \
+            not np.array_equal(srcs[3], srcs[0]):
+        raise AssertionError("the padded group is not 3 requests and a "
+                             "replica of the first")
+    by_route["coalesced"] = full[0]["launches"]
+    by_route["padded"] = padded[0]["launches"]
+    for route, counts in by_route.items():
+        missing = [k for k in RENDER_KERNELS if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"{route}: not launched: {missing}")
+    # one padded (3 + 1 replica) and one full dispatch of 4, wall ms each
+    # (they end on the host), taken in turns
+    walls = {"padded_3_plus_1": [], "full_4": []}
+    for _ in range(3):
+        for name in ("padded_3_plus_1", "full_4", "full_4",
+                     "padded_3_plus_1"):
+            args = (padded if name.startswith("padded") else full)[0]["args"]
+            t0 = time.perf_counter()
+            rec.original["render_batch_yuv420"](*args)
+            walls[name].append(1e3 * (time.perf_counter() - t0))
+    turns = {k: {"median": float(np.median(v)), "min": min(v), "max": max(v),
+                 "real_requests": 3 if k.startswith("padded") else 4}
+             for k, v in walls.items()}
+    emit("serving", rounds=reports, peak_memory_allocated=peak,
+         launches=launches,
+         latency_seconds={k: {"p50": float(np.median(v)), "max": max(v),
+                              "n": len(v)} for k, v in latency.items()},
+         dispatch_wall_ms=turns,
+         dispatch_calls=dict(collections.Counter(
+             c["method"] for c in rec.calls)),
+         requests_per_s=sum(r["requests"] for r in reports.values())
+         / sum(r["wall_seconds"] for r in reports.values()),
+         frames_per_s=frames_total
+         / sum(r["wall_seconds"] for r in reports.values()))
+    return by_route
+
+
+def demo_path(paths: dict, device: str = "cuda") -> dict:
+    """``cli/demo.py`` on the checkpoints at --bf16 --no_crop --no_align,
+    a 4 s 16 kHz wav, a [100, 7] pose track and a 50-frame uint8 emotion
+    clip as files, once as is and once with --adapt_scale: through
+    ``main`` where PyYAML imports, else through the functions ``main``
+    calls after reading the config.  The neutral and emotional frames are
+    bitwise ``render_uint8`` on the pipeline the demo built; the
+    adapt_scale render's scale within 1e-6 (relative) of sqrt(area) of the
+    source keypoints' convex hull over that of the first audio keypoints,
+    from two further keypoint stages, each of which ``movement_scale``
+    gives exactly -> route -> K1-K3 launches."""
+    import random
+
+    from scipy.io import wavfile
+
+    from eamm_tpu_torch.cli import demo
+    from eamm_tpu_torch.ops.mfcc import audio_to_mfcc_windows
+    from eamm_tpu_torch.ops.motion import convex_hull_area
+    d = paths["dir"]
+    src, wav, _ = clip_inputs(SERVE_SECONDS, 360)
+    files = {k: os.path.join(d, f) for k, f in (
+        ("source", "source.npy"), ("wav", "speech.wav"),
+        ("pose", "pose.npy"), ("emotion", "emotion.npy"))}
+    np.save(files["source"], src)
+    wavfile.write(files["wav"], 16000, (np.clip(wav, -1, 1) * 32767)
+                  .astype(np.int16))
+    np.save(files["pose"], np.random.RandomState(361).randn(100, 7)
+            .astype(np.float32))
+    np.save(files["emotion"], (emotion_clip(EMOTION_FRAMES, 362) * 255)
+            .astype(np.uint8))
+    config = {**FULL_CONFIG,
+              "dataset_params": {"augmentation_params": DEMO_AUGMENTATION}}
+    argv = ["--config", paths.get("demo_config") or "", "--checkpoint",
+            paths["fomm"], "--audio_checkpoint", paths["audio"],
+            "--emo_checkpoint", paths["emo"], "--source_image",
+            files["source"], "--in_file", files["wav"], "--pose_file",
+            files["pose"], "--driving_video", files["emotion"],
+            "--result_path", os.path.join(d, "result"), "--no_crop",
+            "--no_align", "--bf16", *(["--cpu"] if device == "cpu" else [])]
+    by_route = {}
+    for route, extra in (("demo", []), ("demo_adapt_scale",
+                                        ["--adapt_scale"])):
+        built = []
+        build = demo.build_pipeline
+        demo.build_pipeline = lambda *a: built.append(build(*a)) or built[0]
+        np.random.seed(363)
+        random.seed(363)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            if paths.get("demo_config"):
+                out = demo.main(argv + extra)
+            else:
+                opt = demo.build_parser().parse_args(argv + extra)
+                out = demo.run_demo(demo.build_pipeline(opt, config),
+                                    *demo.load_inputs(opt), opt, config)
+        finally:
+            demo.build_pipeline = build
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_route[route] = launch_counts()
+        pipe = built[0]
+        opt = demo.build_parser().parse_args(argv + extra)
+        s, w, p, _ = demo.load_inputs(opt)
+        same_bits(out["neutral"], pipe.render_uint8(s, w, p, add_emo=False),
+                  f"{route} neutral")
+        same_bits(out["emotion"], pipe.render_uint8(s, w, p,
+                                                    out["transformed"]),
+                  f"{route} emotional")
+        info = {"frames": int(len(out["emotion"])), "wall_seconds": wall,
+                "outputs": sorted(os.listdir(opt.result_path)),
+                "device": str(pipe.device),
+                "compute_dtype": str(pipe.options.compute_dtype)}
+        if extra:
+            # the hull ratio of the source and first audio keypoints, from
+            # two more keypoint stages (the card may round a keypoint
+            # differently from one call to the next)
+            T, source, wv, ps = pipe._prepare(s, w, p)
+            ratios, kps = [], []
+            for _ in range(2):
+                kp_s, _, kp_initial = pipe.audio_keypoints(
+                    source, audio_to_mfcc_windows(wv)[:ps.shape[0]], ps)
+                src_area = convex_hull_area(
+                    kp_s["value"].float().cpu().numpy())
+                drv_area = convex_hull_area(
+                    kp_initial["value"].float().cpu().numpy())
+                ratios.append(float(np.sqrt(src_area) / np.sqrt(drv_area)))
+                kps.append(torch.cat([kp_s["value"], kp_initial["value"]]))
+                if pipe.movement_scale(kp_s, kp_initial) != ratios[-1]:
+                    raise AssertionError("movement_scale is not the hull "
+                                         "ratio of its keypoints")
+            rel = abs(out["movement_scale"] - ratios[0]) / ratios[0]
+            info.update(movement_scale=out["movement_scale"],
+                        hull_ratio_scale=ratios, relative_difference=rel,
+                        keypoints_max_abs_difference_between_calls=float(
+                            (kps[0] - kps[1]).abs().max()))
+            if rel > 1e-6:
+                raise AssertionError(f"adapt_scale: {out['movement_scale']}"
+                                     f" against the hull ratio {ratios}")
+        emit("demo", route=route, launches=by_route[route], **info)
+        missing = [k for k in RENDER_KERNELS if by_route[route][k] <= 0]
+        if missing:
+            raise AssertionError(f"{route}: not launched: {missing}")
+    return by_route
+
+
+def serving_phase(pipe: EammPipeline, device: str = "cuda") -> dict:
+    """Phase 5b: checkpoints, the server, the demo, on ``device`` -> route
+    -> K1-K3 launches."""
+    have = {name: importable(name) for name in ("yaml", "imageio")}
+    emit("optional_imports", **have)
+    with tempfile.TemporaryDirectory() as d:
+        paths = checkpoint_path(pipe, d, device)
+        paths["dir"] = d
+        if have["yaml"]:
+            import yaml
+            for key, config in (("config", FULL_CONFIG), ("demo_config", {
+                    **FULL_CONFIG, "dataset_params": {
+                        "augmentation_params": DEMO_AUGMENTATION}})):
+                paths[key] = os.path.join(d, f"{key}.yaml")
+                with open(paths[key], "w") as f:
+                    yaml.safe_dump(config, f)
+        by_route = serving_path(paths, device)
+        by_route.update(demo_path(paths, device))
+    if set(by_route) != set(SERVE_ROUTES):
+        raise AssertionError(f"serving routes: {sorted(by_route)}")
+    return by_route
+
+
 # ---------------------------------------------------------------- phase 6
 
 def time_ms(fn, budget_s: float = 0.3) -> float:
@@ -1039,8 +1627,8 @@ def main() -> int:
                   for b in builds})
 
     worst = parity(parity_cases())
-    emit("cpu_vs_card", **cpu_vs_device("cuda"))
-    emit("cpu_vs_card", **cpu_vs_device("cuda", emotion=True))
+    for result in cpu_vs_device("cuda").values():
+        emit("cpu_vs_card", **result)
     opts = PipelineOptions(frame_chunk=32, time_bucket=32,
                            compute_dtype=torch.bfloat16, device="cuda")
     pipe, _ = main_path(opts)
@@ -1055,6 +1643,7 @@ def main() -> int:
     unbounded_path(pipe, video)
     worst = parity(captured_cases(batch_path(pipe)), worst)
     entry = entry_points()
+    serving = serving_phase(pipe)
     times = timings(captured)
 
     # whose launches each row counts
@@ -1078,6 +1667,9 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1], "library_ms": t["library_ms"],
                      "launches_by_path": by_path[name],
+                     "launches_by_serving_route": {
+                         route: counts[name]
+                         for route, counts in serving.items()},
                      **{k: t[k] for k in ("timing", "plan") if k in t}})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

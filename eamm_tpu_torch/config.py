@@ -1,11 +1,20 @@
-"""Model factories from the JAX package's config dict schema
-(``model_params.{common,audio,kp_detector,generator,emotion}_params``,
-``train_params.jaco_net``); see ``eamm_tpu/config.py``.  The dict is
-passed in: this module reads no files."""
+"""Config loading and model factories over the JAX package's config dict
+schema (``model_params.{common,audio,kp_detector,generator,emotion}_params``,
+``train_params.jaco_net``); see ``eamm_tpu/config.py``.  ``load_config``
+reads a YAML file into that dict; the factories take the dict and read no
+files."""
 from __future__ import annotations
 
 from eamm_tpu_torch.models import (ATNet, EmotionK, EmotionMap, KPDetector,
                                    KPDetectorA, OcclusionAwareGenerator)
+
+
+def load_config(path: str) -> dict:
+    """A YAML config file (the reference's schema, ``configs/*.yaml``) ->
+    its dict.  PyYAML is imported here, so the package imports without it."""
+    import yaml
+    with open(path) as f:
+        return yaml.safe_load(f)
 
 
 def _check_jacobian(params: dict) -> None:

@@ -38,7 +38,11 @@ frame.  Two routes serve a clip:
   grow with the clip.  Within one uint8 count of the whole clip.
 
 ``render_batch_*`` renders N neutral clips at once on the whole-clip route,
-identity-major, N sources read in place by the warps.
+identity-major, N sources read in place by the warps.  With
+``adapt_scale``, ``render_uint8`` takes the JAX pipeline's staged route: the
+whole clip in one segment, the movement scaled by a convex-hull ratio the
+host reads between the keypoint stage's halves, uint8 RGB out.
+``from_torch_checkpoints`` loads the reference's three ``.pth.tar`` files.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from eamm_tpu_torch import compat
 from eamm_tpu_torch import config as cfg
 from eamm_tpu_torch.convert import state_dicts_from_jax
 from eamm_tpu_torch.models import EmotionK, EmotionMap
@@ -64,11 +69,8 @@ from eamm_tpu_torch.ops.mfcc import (PAD_SAMPLES, audio_to_mfcc_windows,
                                      min_samples_for_windows,
                                      num_windows_for_samples,
                                      padded_buffer_len)
-from eamm_tpu_torch.ops.motion import normalize_kp
+from eamm_tpu_torch.ops.motion import convex_hull_area, normalize_kp
 from eamm_tpu_torch.utils.transfer import Link
-
-_ADAPT_SCALE_TODO = ("adapt_scale is not ported yet (ROADMAP Queue 1, "
-                     "'The rest of the JAX package')")
 
 # demo --type -> emotion head
 _EMO_HEAD = {"linear_3": "linear", "linear_4": "linear_4",
@@ -80,6 +82,10 @@ _TRANSFER_FORMATS = ("rgb", "yuv420")
 @dataclasses.dataclass
 class PipelineOptions:
     relative: bool = False            # relative keypoint movement
+    # render_uint8 takes the staged route: the movement scaled by the
+    # convex-hull ratio of the source and the first audio keypoints, read
+    # on the host (it moves the frames only with ``relative``)
+    adapt_scale: bool = False
     add_emo: bool = True              # emotional render unless told not to
     emo_type: str = "linear_3"        # demo --type (see _EMO_HEAD)
     audio_weight: float = 1.6         # audio feature gain of the demo
@@ -223,6 +229,8 @@ class EammPipeline:
                              f"{self.options.transfer_format!r}")
         self.device = torch.device(self.options.device)
         self.link = Link(self.device)        # copies to and from the host
+        self.last_movement_scale: float | None = None   # adapt_scale's
+        self.ignored_keys: dict = {}     # from_torch_checkpoints' skipped
         if models is None:
             models = cfg.build_all(config, kind)
             for name, model in models.items():
@@ -332,11 +340,11 @@ class EammPipeline:
     def emotion_keypoints(self, kp_s: dict, driving: dict, kp_initial: dict,
                           emotion: EmotionInput | None = None,
                           euro_carry: dict | None = None,
-                          return_carry: bool = False):
+                          return_carry: bool = False, scale: float = 1.0):
         """The emotion half: the emotion displacement, when ``emotion`` is
-        given, added to the driving keypoints, then ``normalize_kp`` ->
-        normalized driving kp (and the emotion filters' states with
-        ``return_carry``)."""
+        given, added to the driving keypoints, then ``normalize_kp`` with
+        movement scale ``scale`` -> normalized driving kp (and the emotion
+        filters' states with ``return_carry``)."""
         o = self.options
         if emotion is not None:
             emo, euro_carry = self.emotion_stage(
@@ -345,7 +353,8 @@ class EammPipeline:
             driving = compose_kp(driving, emo)
         kp_norm = normalize_kp(kp_s, driving, kp_initial,
                                use_relative_movement=o.relative,
-                               use_relative_jacobian=o.relative)
+                               use_relative_jacobian=o.relative,
+                               adapt_movement_scale=scale)
         return (kp_norm, euro_carry) if return_carry else kp_norm
 
     def clip_keypoints(self, source: torch.Tensor, windows: torch.Tensor,
@@ -362,11 +371,12 @@ class EammPipeline:
         src = source.to(self.options.compute_dtype)
         return src, self.generator.encode_source(src)
 
-    def _to_payload(self, pred: torch.Tensor) -> tuple:
+    def _to_payload(self, pred: torch.Tensor, rgb: bool = False) -> tuple:
         """Float prediction [n, 3, H, W] in [0, 1] -> (uint8 frames
-        [n, H, W, 3],) or, on a yuv420 pipeline, (Y, U, V) uint8 planes."""
+        [n, H, W, 3],) or, on a yuv420 pipeline unless ``rgb``, (Y, U, V)
+        uint8 planes."""
         nhwc = pred.float().permute(0, 2, 3, 1)
-        if self._yuv:
+        if self._yuv and not rgb:
             return rgb_to_yuv420(nhwc)
         return (torch.clamp(torch.round(nhwc * 255.0), 0, 255)
                 .to(torch.uint8),)
@@ -374,13 +384,13 @@ class EammPipeline:
     @torch.no_grad()
     def decode_frames(self, src: torch.Tensor, feats: torch.Tensor,
                       kp_driving: dict, kp_source: dict, start: int,
-                      stop: int, chunk: int) -> tuple:
+                      stop: int, chunk: int, rgb: bool = False) -> tuple:
         """Frames [start, stop) of N identities (sources and features from
         ``source_features``, driving kp [N, Tp, ...], source kp [N, ...]),
         in chunks of ``chunk`` frames an identity, identity-major: N x chunk
         frames a decode, frame b reading source b // chunk in place -> the
-        payload (``_to_payload``), each tensor [N, stop - start, ...], on
-        the device."""
+        payload (``_to_payload``, uint8 RGB with ``rgb``), each tensor
+        [N, stop - start, ...], on the device."""
         dt = self.options.compute_dtype
         N = src.shape[0]
         kp_src = {k: v.to(dt) for k, v in kp_source.items()}
@@ -391,7 +401,8 @@ class EammPipeline:
             n = kp_d["value"].shape[1]
             kp_d = {k: v.flatten(0, 1) for k, v in kp_d.items()}
             kps = {k: v.repeat_interleave(n, dim=0) for k, v in kp_src.items()}
-            out = self._to_payload(self.generator.decode(src, feats, kp_d, kps))
+            out = self._to_payload(self.generator.decode(src, feats, kp_d, kps),
+                                   rgb)
             parts.append(tuple(x.view(N, n, *x.shape[1:]) for x in out))
         return tuple(torch.cat(p, dim=1) for p in zip(*parts))
 
@@ -503,19 +514,35 @@ class EammPipeline:
                 torch.as_tensor(wav_p, device=dev),
                 torch.as_tensor(pose_p, device=dev))
 
-    def _kp_stage(self, source, wav, pose, transformed_video, add_emo):
+    def _kp_stage(self, source, wav, pose, transformed_video, add_emo,
+                  adapt_scale: bool = False):
         """The whole clip's keypoint stage: the audio half is queued first,
         then the emotion frames' upload, then the emotion half, so a cold
-        render's upload overlaps the audio half.  -> (normalized driving kp
-        over Tp, source kp)."""
+        render's upload overlaps the audio half; with ``adapt_scale`` the
+        host reads the keypoints for ``movement_scale`` in between.  ->
+        (normalized driving kp over Tp, source kp)."""
         if add_emo and transformed_video is None:
             raise ValueError("add_emo requires transformed_video frames")
         Tp = pose.shape[0]
         kp_s, driving, kp_initial = self.audio_keypoints(
             source, audio_to_mfcc_windows(wav)[:Tp], pose)
+        scale = 1.0
+        if adapt_scale:
+            scale = self.last_movement_scale = self.movement_scale(
+                kp_s, kp_initial)
         emotion = (self._emotion_input(transformed_video, Tp) if add_emo
                    else None)
-        return self.emotion_keypoints(kp_s, driving, kp_initial, emotion), kp_s
+        return self.emotion_keypoints(kp_s, driving, kp_initial, emotion,
+                                      scale=scale), kp_s
+
+    @staticmethod
+    def movement_scale(kp_source: dict, kp_initial: dict) -> float:
+        """sqrt(area) of the source keypoints' convex hull over sqrt(area)
+        of the first audio keypoints' (each {'value': [K, 2], ...}), on the
+        host: ``adapt_scale``'s movement scale."""
+        src = convex_hull_area(kp_source["value"].float().cpu().numpy())
+        drv = convex_hull_area(kp_initial["value"].float().cpu().numpy())
+        return float(np.sqrt(src) / np.sqrt(drv))
 
     def _segments(self, T: int, Tseg: int, decode, axis: int = 0):
         """Yields (start frame, payload on the host) per segment of Tseg
@@ -543,6 +570,24 @@ class EammPipeline:
         src, feats = self.source_features(source)
         yield from self._segments(T, pose.shape[0] // S, lambda a, b: (
             self._decode_one(src, feats, kp_norm, kp_s, a, b)))
+
+    @torch.no_grad()
+    def _render_staged(self, source_image, waveform, all_pose,
+                       transformed_video, add_emo) -> np.ndarray:
+        """The adapt_scale route of ``render_uint8``: the whole-clip route
+        in one segment with the movement scale (``_kp_stage``), whatever
+        the clip's length, decoded as uint8 RGB whatever the transfer
+        format, as in the JAX pipeline -> uint8 [T, 256, 256, 3]."""
+        T, source, wav, pose = self._prepare(source_image, waveform,
+                                             all_pose)
+        kp_norm, kp_s = self._kp_stage(source, wav, pose, transformed_video,
+                                       add_emo, adapt_scale=True)
+        src, feats = self.source_features(source)
+        frames = self.decode_frames(
+            src, feats, {k: v[None] for k, v in kp_norm.items()},
+            {k: v[None] for k, v in kp_s.items()}, 0, pose.shape[0],
+            self.options.frame_chunk, rgb=True)[0][0]
+        return self.link.fetch_async((frames,), T).result()[0]
 
     # ------------------------------------------------- unbounded route
 
@@ -674,17 +719,21 @@ class EammPipeline:
         return tuple(np.concatenate(x, axis=axis) for x in zip(*parts))
 
     def render_uint8(self, source_image, waveform, all_pose,
-                     transformed_video=None, add_emo: bool | None = None,
-                     adapt_scale: bool = False) -> np.ndarray:
+                     transformed_video=None,
+                     add_emo: bool | None = None) -> np.ndarray:
         """source_image [256,256,3] float32 in [0, 1], waveform [N] float32
         at 16 kHz, all_pose [M, 7] (or [1, 7]), transformed_video the
         mouth-masked emotion frames [U, 256, 256, 3] (float32 in [0, 1] or
         uint8), packed yuv420 planes [U, 384, 256] uint8, or an
         ``EmotionHandle``, required when ``add_emo`` (None:
         ``options.add_emo``) -> uint8 frames [T, 256, 256, 3] on the host
-        (on a yuv420 pipeline ``render_yuv420`` turned back into RGB)."""
-        if adapt_scale:
-            raise NotImplementedError(_ADAPT_SCALE_TODO)
+        (on a yuv420 pipeline ``render_yuv420`` turned back into RGB; with
+        ``options.adapt_scale`` the staged route, ``_render_staged``, its
+        scale kept in ``last_movement_scale``)."""
+        if self.options.adapt_scale:
+            add_emo = self.options.add_emo if add_emo is None else add_emo
+            return self._render_staged(source_image, waveform, all_pose,
+                                       transformed_video, add_emo)
         if self._yuv:
             return yuv420_to_rgb(*self.render_yuv420(
                 source_image, waveform, all_pose, transformed_video, add_emo))
@@ -701,15 +750,15 @@ class EammPipeline:
                                          transformed_video, add_emo))
 
     def render_stream(self, source_image, waveform, all_pose,
-                      transformed_video=None, add_emo: bool | None = None,
-                      adapt_scale: bool = False):
+                      transformed_video=None, add_emo: bool | None = None):
         """A generator of (start frame, payload) in clip order: payload the
         uint8 frames [k, 256, 256, 3] or, on a yuv420 pipeline, the (Y, U, V)
         planes of frames start .. start + k - 1.  Whole-clip route: one
         payload per segment (``overlap_segments``), each as soon as its copy
         is done; unbounded route: one per chunk.  The payloads put together
-        equal ``render_uint8`` / ``render_yuv420``."""
-        if adapt_scale:
+        equal ``render_uint8`` / ``render_yuv420``.  Refuses
+        ``options.adapt_scale``, as the JAX pipeline does."""
+        if self.options.adapt_scale:
             raise ValueError("render_stream does not support adapt_scale "
                              "(its convex-hull scale is a host round trip)")
         for start, payload in self._payloads(source_image, waveform, all_pose,
@@ -717,11 +766,11 @@ class EammPipeline:
             yield start, (payload if self._yuv else payload[0])
 
     def render(self, source_image, waveform, all_pose,
-               transformed_video=None, add_emo: bool | None = None,
-               adapt_scale: bool = False) -> np.ndarray:
+               transformed_video=None,
+               add_emo: bool | None = None) -> np.ndarray:
         """``render_uint8`` as float32 frames in [0, 1]."""
         return self.render_uint8(source_image, waveform, all_pose,
-                                 transformed_video, add_emo, adapt_scale
+                                 transformed_video, add_emo
                                  ).astype(np.float32) / 255.0
 
     # ------------------------------------------------- batched render
@@ -827,6 +876,32 @@ class EammPipeline:
         for name in sorted(models, key=lambda n: (n == "emo_detector", n)):
             reset_parameters(models[name], gen)
         return cls(config, options=options, models=models)
+
+    @classmethod
+    def from_torch_checkpoints(cls, config: dict, fomm_path: str,
+                               audio_path: str, emo_path: str,
+                               options: PipelineOptions | None = None
+                               ) -> "EammPipeline":
+        """The reference's three checkpoints: FOMM {generator, kp_detector},
+        audio {audio_feature, kp_detector_a}, emotion {emo_detector}.  Each
+        model loads strictly on the CPU, its ``module.`` prefixes dropped,
+        then moves to the options' device.  The emotion file's ``final_4``
+        stack, which no head runs and EmotionK does not hold, is skipped
+        and named in ``ignored_keys``."""
+        options = options or PipelineOptions()
+        sds = compat.model_state_dicts(
+            *(compat.load_torch_checkpoint(p)
+              for p in (fomm_path, audio_path, emo_path)))
+        models = cfg.build_all(config, _emotion_kind(options.emo_type))
+        ignored = {}
+        for name, model in models.items():
+            sd, ignored[name] = compat.split_unused(
+                sds[name], model,
+                compat.EMOTION_K_UNUSED if name == "emo_detector" else ())
+            model.load_state_dict(sd)
+        pipe = cls(config, options=options, models=models)
+        pipe.ignored_keys = {k: v for k, v in ignored.items() if v}
+        return pipe
 
     @classmethod
     def from_jax_variables(cls, config: dict, variables: dict,

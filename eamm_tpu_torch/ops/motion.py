@@ -53,6 +53,14 @@ def relative_kp(kp_driving_value, kp_driving_initial_value, kp_source_value,
     return value, jacobian
 
 
+def convex_hull_area(points) -> float:
+    """Area of the convex hull of [K, 2] points, on the host (numpy and
+    scipy): the ``adapt_scale`` movement rescale."""
+    import numpy as np
+    from scipy.spatial import ConvexHull
+    return float(ConvexHull(np.asarray(points)).volume)
+
+
 def normalize_kp(kp_source: dict, kp_driving: dict, kp_driving_initial: dict,
                  use_relative_movement: bool = False,
                  use_relative_jacobian: bool = False,

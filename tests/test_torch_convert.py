@@ -19,6 +19,17 @@ from tests.test_compat_parity import (TATNet, TKPDetector, TKPDetectorA,
                                       _randomize_bn_stats)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs in several
+    workers at once, and a torch per worker spinning a thread per core
+    slows every worker."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _oracle_kp():
     return (TKPDetector(be=8, max_f=32, num_blocks=3), convert_kp_detector,
             convert.kp_detector_state_dict,

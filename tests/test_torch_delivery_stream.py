@@ -223,8 +223,8 @@ def test_render_stream_bounded_matches_whole(port):
     np.testing.assert_array_equal(np.concatenate([p for _, p in segs]),
                                   _whole(port, False))
     with pytest.raises(ValueError, match="adapt_scale"):
-        next(ov.render_stream(src, wav, pose, add_emo=False,
-                              adapt_scale=True))
+        next(_variant(port, overlap_segments=3, adapt_scale=True)
+             .render_stream(src, wav, pose, add_emo=False))
 
 
 @pytest.mark.parametrize("case", ["neutral", "frames", "handle"])

@@ -32,7 +32,18 @@ from eamm_tpu_torch.ops.filters import one_euro_filter
 from tests.test_compat_emotion import TEmotionK
 from tests.test_compat_emotion_map import TEmotionMap
 from tests.test_compat_parity import _randomize_bn_stats
-from tests.test_torch_models import _close, _kp, _nchw
+from tests.test_torch_models import _close, _jit, _kp, _nchw
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs in several
+    workers at once, and a torch per worker spinning a thread per core
+    slows every worker."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 NARROW = dict(block_expansion=8, max_features=32, num_blocks=3)
 
@@ -80,8 +91,8 @@ def _build(jax_cls, port_cls, to_port, seed):
     """A JAX model with every head's parameters and its port twin."""
     x, kp = _inputs(seed)
     jm = jax_cls(**NARROW)
-    v = jm.init(jax.random.PRNGKey(seed), *_jax_args(x[:1], {
-        k: a[:1] for k, a in kp.items()}), head="all")
+    v = _jit(jm.init, head="all")(jax.random.PRNGKey(seed), *_jax_args(
+        x[:1], {k: a[:1] for k, a in kp.items()}))
     port = port_cls(**NARROW)
     port.load_state_dict(to_port(jax.tree.map(np.asarray, v)))
     return jm, calibrate(port, seed + 1, 128), port

@@ -34,6 +34,17 @@ from tests.conftest import TINY_CONFIG
 from tests.test_infer_pipeline import _inputs
 from tests.test_torch_emotion import calibrate
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs in several
+    workers at once, and a torch per worker spinning a thread per core
+    slows every worker."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 OPTS = dict(frame_chunk=8, time_bucket=8)
 KP_TOL = 1e-4
 

@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 import bench
 import chip_smoke
@@ -21,9 +22,36 @@ import chip_profile, chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "eamm_tpu")
              or m.startswith(("jax.", "flax.", "eamm_tpu.")))
-print(bad)
-sys.exit(1 if bad else 0)
+missing = sorted(set(sys.argv[1:]) - set(sys.modules))
+print(bad, missing)
+sys.exit(1 if bad or missing else 0)
 """
+# the entry points and what they read: the walk above must import each
+ENTRY_MODULES = ["eamm_tpu_torch.serve", "eamm_tpu_torch.serve_http",
+                 "eamm_tpu_torch.cli.serve", "eamm_tpu_torch.cli.demo",
+                 "eamm_tpu_torch.compat", "eamm_tpu_torch.compat.preflight",
+                 "eamm_tpu_torch.config", "eamm_tpu_torch.data.native",
+                 "eamm_tpu_torch.data.augmentation",
+                 "eamm_tpu_torch.data.landmarks",
+                 "eamm_tpu_torch.data.preprocess"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs in several
+    workers at once, and a torch per worker spinning a thread per core
+    slows every worker."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def cpu_vs_cpu():
+    """Phase 4 with both sides on the CPU, neutral and emotional renders
+    from one pair of pipelines."""
+    return chip_smoke.cpu_vs_device("cpu")
 
 
 def _run(args, cwd):
@@ -33,7 +61,7 @@ def _run(args, cwd):
 
 
 def test_port_imports_no_jax():
-    r = _run(["-c", _IMPORT_ALL], REPO_ROOT)
+    r = _run(["-c", _IMPORT_ALL, *ENTRY_MODULES], REPO_ROOT)
     assert r.returncode == 0, r.stdout + r.stderr
 
 
@@ -56,16 +84,16 @@ def test_chip_smoke_configs_are_the_repos():
     assert chip_smoke.FULL_CONFIG == bench.FULL_CONFIG
 
 
-def test_chip_smoke_cpu_vs_device_on_cpu():
+def test_chip_smoke_cpu_vs_device_on_cpu(cpu_vs_cpu):
     """Phase 4 at TINY widths with both sides on the CPU: identical."""
-    result = chip_smoke.cpu_vs_device("cpu")
-    assert result["frames"] == 24
+    result = cpu_vs_cpu["neutral"]
+    assert not result["emotion"] and result["frames"] == 24
     assert result["l1_max"] == 0.0
 
 
-def test_chip_smoke_emotional_cpu_vs_device_on_cpu():
+def test_chip_smoke_emotional_cpu_vs_device_on_cpu(cpu_vs_cpu):
     """Phase 4's emotional render with both sides on the CPU: identical."""
-    result = chip_smoke.cpu_vs_device("cpu", emotion=True)
+    result = cpu_vs_cpu["emotional"]
     assert result["emotion"] and result["frames"] == 24
     assert result["l1_max"] == 0.0
 

@@ -15,6 +15,17 @@ from eamm_tpu.ops import kp_pallas, warp_pallas
 from eamm_tpu_torch.ops import kp_expectation as kpx
 from eamm_tpu_torch.ops import warp_cuda
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs in several
+    workers at once, and a torch per worker spinning a thread per core
+    slows every worker."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 1e-5
 
 

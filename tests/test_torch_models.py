@@ -3,6 +3,8 @@ JAX module is initialised, its variables go through
 ``convert.state_dicts_from_jax`` into the port, and both run on the same
 numpy inputs.  Tolerance 1e-3, the per-module bound the JAX package meets
 against its torch oracles (PARITY.md)."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,11 +18,29 @@ from eamm_tpu_torch import convert
 from eamm_tpu_torch.models import (ATNet, KPDetector, KPDetectorA,
                                    OcclusionAwareGenerator)
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs in several
+    workers at once, and a torch per worker spinning a thread per core
+    slows every worker."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = 1e-3
 DM = dict(block_expansion=8, max_features=32, num_blocks=3, scale_factor=0.25)
 GEN = dict(block_expansion=8, max_features=32, num_down_blocks=2,
            num_bottleneck_blocks=1, estimate_occlusion_map=True,
            dense_motion_params=DM)
+
+
+def _jit(fn, **static):
+    """``fn`` with ``static`` bound, compiled as one XLA program: a flax
+    ``init`` or ``apply`` run eagerly dispatches (and compiles) each of
+    its hundreds of ops on its own, several times slower on the CPU."""
+    return jax.jit(functools.partial(fn, **static))
 
 
 def _np_tree(tree):
@@ -73,8 +93,8 @@ def test_kp_detector():
                      num_blocks=3, temperature=0.1, scale_factor=0.25)
     img = rng.rand(2, 128, 128, 3).astype(np.float32)
     v = _perturb_heads(_randomize_stats(
-        jm.init(jax.random.PRNGKey(0), jnp.asarray(img[:1])), 1), rng)
-    ref = jm.apply(v, jnp.asarray(img))
+        _jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(img[:1])), 1), rng)
+    ref = _jit(jm.apply)(v, jnp.asarray(img))
     port = KPDetector(num_kp=10, block_expansion=8, max_features=32,
                       num_blocks=3).eval()
     port.load_state_dict(convert.kp_detector_state_dict(v))
@@ -88,9 +108,9 @@ def test_kp_detector_a():
     rng = np.random.RandomState(1)
     jm = JKPDetectorA(num_kp=10, temperature=0.1)
     fmap = rng.randn(3, 64, 64, 35).astype(np.float32)
-    v = _perturb_heads(_np_tree(jm.init(jax.random.PRNGKey(1),
-                                        jnp.asarray(fmap[:1]))), rng)
-    ref = jm.apply(v, jnp.asarray(fmap))
+    v = _perturb_heads(_np_tree(_jit(jm.init)(jax.random.PRNGKey(1),
+                                              jnp.asarray(fmap[:1]))), rng)
+    ref = _jit(jm.apply)(v, jnp.asarray(fmap))
     port = KPDetectorA().eval()
     port.load_state_dict(convert.kp_detector_a_state_dict(v))
     with torch.no_grad():
@@ -105,8 +125,8 @@ def generators():
     jm = JGenerator(**GEN)
     src = rng.rand(1, 64, 64, 3).astype(np.float32)
     kp0 = _j(_kp(rng, 1))
-    v = _randomize_stats(jm.init(jax.random.PRNGKey(2), jnp.asarray(src),
-                                 kp0, kp0), 3)
+    v = _randomize_stats(_jit(jm.init)(jax.random.PRNGKey(2),
+                                       jnp.asarray(src), kp0, kp0), 3)
     port = OcclusionAwareGenerator(**GEN).eval()
     port.load_state_dict(convert.generator_state_dict(v))
     return jm, v, port, src
@@ -117,9 +137,9 @@ def test_dense_motion(generators):
     jm, v, port, src = generators
     rng = np.random.RandomState(4)
     kp_d, kp_s = _kp(rng, 3), _kp(rng, 3)
-    ref = jm.apply(v, jnp.asarray(src), _j(kp_d), _j(kp_s),
-                   method=lambda m, s, d, k: m.dense_motion_network(
-                       s, kp_driving=d, kp_source=k, shared_source=True))
+    ref = _jit(jm.apply, method=lambda m, s, d, k: m.dense_motion_network(
+        s, kp_driving=d, kp_source=k, shared_source=True))(
+        v, jnp.asarray(src), _j(kp_d), _j(kp_s))
     with torch.no_grad():
         ours = port.dense_motion_network(_nchw(src), _t(kp_d), _t(kp_s))
     _close(ours["deformation"], ref["deformation"])
@@ -132,9 +152,10 @@ def test_generator_encode_decode(generators):
     jm, v, port, src = generators
     rng = np.random.RandomState(5)
     kp_d, kp_s = _kp(rng, 3), _kp(rng, 3)
-    feats = jm.apply(v, jnp.asarray(src), method=jm.encode_source)
-    ref = jm.apply(v, jnp.asarray(src), feats, _j(kp_d), _j(kp_s),
-                   method=jm.decode, want_aux=False, shared_source=True)
+    feats = _jit(jm.apply, method=jm.encode_source)(v, jnp.asarray(src))
+    ref = _jit(jm.apply, method=jm.decode, want_aux=False,
+               shared_source=True)(v, jnp.asarray(src), feats, _j(kp_d),
+                                   _j(kp_s))
     with torch.no_grad():
         ours_feats = port.encode_source(_nchw(src))
         ours = port.decode(_nchw(src), ours_feats, _t(kp_d), _t(kp_s))
@@ -148,11 +169,13 @@ def test_atnet():
     img = rng.rand(1, 256, 256, 3).astype(np.float32)
     audio = rng.randn(1, 3, 28, 12).astype(np.float32)
     pose = rng.randn(1, 3, 6).astype(np.float32)
-    v = _randomize_stats(jm.init(jax.random.PRNGKey(3), jnp.asarray(img),
-                                 jnp.asarray(audio[:, :1]),
-                                 jnp.asarray(pose[:, :1])), 7)
-    ref = jm.apply(v, jnp.asarray(img), jnp.asarray(audio), jnp.asarray(pose),
-                   audio_weight=1.6)                      # [B,T,64,64,35]
+    v = _randomize_stats(_jit(jm.init)(jax.random.PRNGKey(3),
+                                       jnp.asarray(img),
+                                       jnp.asarray(audio[:, :1]),
+                                       jnp.asarray(pose[:, :1])), 7)
+    ref = _jit(jm.apply, audio_weight=1.6)(
+        v, jnp.asarray(img), jnp.asarray(audio),
+        jnp.asarray(pose))                                # [B,T,64,64,35]
     port = ATNet().eval()
     port.load_state_dict(convert.atnet_state_dict(v))
     with torch.no_grad():

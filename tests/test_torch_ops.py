@@ -6,6 +6,7 @@ import importlib
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from eamm_tpu.ops import antialias as jax_antialias
@@ -17,6 +18,17 @@ from eamm_tpu_torch.ops import antialias, filters, grid, mfcc, motion, warp
 
 # eamm_tpu.ops re-exports a function named mfcc over its module
 jax_mfcc = importlib.import_module("eamm_tpu.ops.mfcc")
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for this module: the suite runs in several
+    workers at once, and a torch per worker spinning a thread per core
+    slows every worker."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 ATOL = 1e-5
 
@@ -40,16 +52,23 @@ def _kp(rng, B, K=10, jac_noise=0.1):
 # ------------------------------------------------------------------ grid
 
 def test_grid_ops():
+    """Independent of what ran before it in the process: torch runs on the
+    module fixture's one thread with explicit float32 inputs, JAX under
+    float32, standard promotion and full matmul precision whatever an
+    earlier test set, and JAX gets copies, never views of torch memory."""
     rng = np.random.RandomState(0)
-    _close(grid.make_coordinate_grid(7, 5), jax_grid.make_coordinate_grid(7, 5))
-    kp = rng.uniform(-1, 1, (2, 10, 2)).astype(np.float32)
-    _close(grid.kp2gaussian(_t(kp), (16, 12), 0.01),
-           jax_grid.kp2gaussian(jnp.asarray(kp), (16, 12), 0.01))
-    pred = rng.randn(2, 10, 9, 11).astype(np.float32)
-    heat = grid.heatmap_softmax(_t(pred), 0.1)
-    _close(heat, jax_grid.heatmap_softmax(jnp.asarray(pred), 0.1))
-    _close(grid.gaussian2kp(heat),
-           jax_grid.gaussian2kp(jnp.asarray(heat.numpy())))
+    with jax.enable_x64(False), jax.numpy_dtype_promotion("standard"), \
+            jax.default_matmul_precision("highest"):
+        _close(grid.make_coordinate_grid(7, 5, torch.float32),
+               jax_grid.make_coordinate_grid(7, 5, jnp.float32))
+        kp = rng.uniform(-1, 1, (2, 10, 2)).astype(np.float32)
+        _close(grid.kp2gaussian(_t(kp), (16, 12), 0.01),
+               jax_grid.kp2gaussian(jnp.array(kp), (16, 12), 0.01))
+        pred = rng.randn(2, 10, 9, 11).astype(np.float32)
+        heat = grid.heatmap_softmax(_t(pred), 0.1)
+        _close(heat, jax_grid.heatmap_softmax(jnp.array(pred), 0.1))
+        _close(grid.gaussian2kp(heat),
+               jax_grid.gaussian2kp(jnp.array(heat.numpy())))
 
 
 # ------------------------------------------------------------------ warp

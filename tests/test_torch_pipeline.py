@@ -68,15 +68,17 @@ def test_bf16_render_tracks_f32(port):
 
 
 def test_unported_options_raise(port):
-    """What is still to port raises, naming its ROADMAP item: adapt_scale
-    (the whole-clip renderers; render_stream refuses it as the JAX
-    package's does)."""
+    """What is still to port raises, naming its ROADMAP item: ATNet's 'gan'
+    Jacobian decoder.  render_stream refuses adapt_scale, as the JAX
+    package's does; the whole-clip render takes it (the staged route)."""
     src, wav, pose, _ = _inputs()
+    config = {**TINY_CONFIG, "train_params": {"jaco_net": "gan"}}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.render_uint8(src, wav, pose, add_emo=False, adapt_scale=True)
+        EammPipeline.from_random(config, options=PipelineOptions(**OPTS))
+    staged = EammPipeline(TINY_CONFIG, models=port.models,
+                          options=PipelineOptions(adapt_scale=True, **OPTS))
     with pytest.raises(ValueError, match="adapt_scale"):
-        next(port.render_stream(src, wav, pose, add_emo=False,
-                                adapt_scale=True))
+        next(staged.render_stream(src, wav, pose, add_emo=False))
 
 
 @pytest.fixture(scope="module")
