@@ -106,6 +106,26 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
      bitwise ``render_uint8`` on the demo's pipeline, the adapt_scale
      scale within 1e-6 of the convex-hull ratio (and the keypoints'
      difference between two calls), launches per run.
+7. the frozen artifact (``eamm_tpu_torch/infer/export.py``), after 5b:
+   the main path's models at FULL_CONFIG, bfloat16, yuv420, frame_chunk
+   32, exported on the card at batch 4, one frame bucket of 64 (the 2 s
+   requests' 50 frames), emotion bucket 32, 2 stream segments and
+   unbounded chunks of 64 frames with the length policy at 64 (11
+   programs; each program's export seconds, the file's bytes); served
+   by ``eamm-torch-serve --artifact`` (``cli/serve.py`` ``main``), whose
+   load of the file is timed; every program run on inputs the artifact's
+   host side makes from seeded requests and held bitwise to the live
+   pipeline's function on the same inputs, with K1-K3 launches per
+   program; each route on the server's ``ArtifactPipeline`` (a batch of 4
+   clips of 2 s, an emotional 2 s clip with 20 raw frames, a 2 s stream,
+   a 5 s clip through the unbounded chunks) driven with launch counts
+   (``artifact <route>`` requests: each of K1-K3 must launch); the batch
+   call bitwise the live pipeline's same call, both timed in turns (wall
+   ms, artifact, live, live, artifact; three rounds); then the same kinds
+   of request at once from client threads over HTTP, every call the
+   worker made made again and held to its result bit for bit, each
+   client's payload to its part of it, with latencies and the peak
+   device memory while serving beside phase 5b's.
 6. kernel times at the main-path shapes: the kernel, its plain version,
    one PyTorch library call computing the same function where there is
    one, and the bound (the larger of bytes at 3.35 TB/s and operations at
@@ -116,12 +136,17 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    the random grid and the main path's captured arguments, each in 6
    samples of ~20 ms taken in turns (kernel, library, store-only,
    store-only, library, kernel; three rounds), as median, min and max,
-   both replayed and eager (``call_ms``); the store-only kernel writes the
-   output's bytes and nothing else, the card's write ceiling.  The fused
+   both replayed and eager (``call_ms``, through the ``eamm::``
+   operator; ``launcher_call_ms``, the wrapper's own launch without the
+   operator's dispatch, what a call cost before the kernels were
+   operators); the store-only kernel writes the output's bytes and
+   nothing else, the card's write ceiling.  The fused
    keypoint expectation is timed three ways (float32 with and without the
    heatmap, bfloat16 with it), each with its own bound, in the same turns
    as K3 on the same float32 inputs (``timing`` in its row, with the
-   launch ``plan`` the wrapper makes for the first).
+   launch ``plan`` the wrapper makes for the first); K3's and K5's eager
+   call through the operator and through their CUDA implementation
+   called directly, in turns (``*call_ms`` in ``timing``).
    The plain versions are timed eager.
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line
@@ -1207,7 +1232,7 @@ def serving_path(paths: dict, device: str = "cuda") -> dict:
         clients["mixed"] = (mixed, out, rec.calls[start:])
         if (stats["dispatches"], stats["mean_batch_occupancy"]) != (5, 1.0):
             raise AssertionError(f"mixed: {stats}, expected 5 singletons")
-        peak = torch.cuda.max_memory_allocated()
+        peak = PEAKS["serving"] = torch.cuda.max_memory_allocated()
         launches = launch_counts()
     finally:
         stop.set()
@@ -1442,6 +1467,275 @@ def serving_phase(pipe: EammPipeline, device: str = "cuda") -> dict:
     return by_route
 
 
+# ---------------------------------------------------------------- phase 7
+
+# the artifact's frame bucket (the 2 s requests' 50 frames ride it), its
+# unbounded chunk and length policy, its segments, its emotion bucket
+ARTIFACT_FRAMES = 64
+ARTIFACT_SEGMENTS = 2
+ARTIFACT_EMO_FRAMES = 32
+ARTIFACT_SECONDS = 2.0
+ARTIFACT_LONG_SECONDS = 5.0     # 125 frames: two unbounded chunks
+ARTIFACT_ROUTES = ("coalesced", "emotional", "stream", "unbounded")
+PEAKS: dict = {}                # peak device memory of phase 5b's serving
+
+
+def artifact_live(pipe: EammPipeline, device: str = "cuda") -> EammPipeline:
+    """The pipeline phase 7 exports: ``pipe``'s models in bfloat16 decode,
+    yuv420, with the artifact's segments, chunks and length policy."""
+    return EammPipeline(FULL_CONFIG, models=pipe.models, options=PipelineOptions(
+        frame_chunk=32, time_bucket=32, compute_dtype=torch.bfloat16,
+        transfer_format="yuv420", overlap_segments=ARTIFACT_SEGMENTS,
+        segment_frames=ARTIFACT_FRAMES, stream_policy_frames=ARTIFACT_FRAMES,
+        device=device))
+
+
+def hold_programs(art, live: EammPipeline) -> dict:
+    """Every program of ``art`` on inputs its host side makes from seeded
+    requests, held bit for bit to the live pipeline's function of the same
+    inputs -> program -> K1-K3 launches of the program's call."""
+    import functools
+    from eamm_tpu_torch.ops.mfcc import chunk_samples_len
+    dev = art.device
+    _, tp, src, win, pose = art._prepare_single(
+        *clip_inputs(ARTIFACT_SECONDS, 700))
+    emo = art.meta["emotional"]
+    frames, u = art._emotion_inputs(emotion_clip(20, 7),
+                                    emo["emo_frame_buckets"],
+                                    emo["frames_dtype"], cut=tp)
+    up, index = frames.shape[0], art._index(0, tp, u)
+    _, srcs, wins, poses = art._prepare_batch(*zip(*(
+        clip_inputs(ARTIFACT_SECONDS, 701 + i) for i in range(art.batch))))
+    K = art.meta["unbounded"]["segment_frames"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    samples = 0.1 * torch.randn(1 + chunk_samples_len(K), device=dev,
+                                generator=gen)
+    pose_k = torch.randn(K, 6, device=dev, generator=gen)
+    index_k = art._index(0, K, u)
+    chunk = live._stream_kp_chunk_impl
+    held, outputs = {}, {}
+
+    def hold(name, fn, *args):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = art._call(name, *args)
+        torch.cuda.synchronize()
+        held[name] = {k: v for k, v in launch_counts().items()
+                      if k in RENDER_KERNELS}
+        want = fn(*args)
+        if len(got) != len(want) or not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"artifact program {name}: not bitwise the "
+                                 "live call")
+        outputs[name] = got
+        return got
+
+    hold(f"{art.batch}x{tp}", live._batch_render_impl, srcs, wins, poses)
+    hold(f"emo_{tp}x{up}", live._emo_render_from_windows_impl, src, win,
+         pose, frames, index)
+    kv, kj, ksv, ksj, feats = hold(f"kp_{tp}",
+                                   live._kp_stage_from_windows_impl, src,
+                                   win, pose)
+    hold(f"kp_emo_{tp}x{up}", live._kp_stage_from_windows_impl, src, win,
+         pose, frames, index)
+    n = tp // art.meta["streaming"]["segments"]
+    hold(f"seg_{tp}", live._render_segment_impl, src, feats, ksv, ksj,
+         kv[:n], kj[:n])
+    ksv, ksj, imgf, feats = hold("u_prelude", live._stream_prelude_impl, src)
+    head = (ksv, ksj, imgf, samples, pose_k)
+    for tag, emo_in in (("", ()), (f"emo{up}_", (frames, index_k))):
+        kw = dict(emotional=bool(emo_in))
+        kv, kj, *carry = hold(f"u_kp_{tag}first", functools.partial(
+            chunk, first=True, **kw), *head, *emo_in)
+        hold(f"u_kp_{tag}next", functools.partial(chunk, first=False, **kw),
+             *head, *emo_in, *carry)
+    hold("u_seg", live._render_segment_impl, src, feats, ksv, ksj, kv, kj)
+    if set(held) != set(art._programs):
+        raise AssertionError(f"programs held {sorted(held)} of "
+                             f"{sorted(art._programs)}")
+    return held
+
+
+def artifact_requests(seed: int) -> dict:
+    """Phase 7's requests: 4 neutral clips (a coalesced dispatch), one
+    emotional with 20 raw frames, a stream, a long clip."""
+    reqs = {f"coalesced.{i}": clip_inputs(ARTIFACT_SECONDS, seed + i)
+            for i in range(4)}
+    reqs["emotional"] = clip_inputs(ARTIFACT_SECONDS, seed + 4)
+    reqs["stream"] = clip_inputs(ARTIFACT_SECONDS, seed + 5)
+    reqs["unbounded"] = clip_inputs(ARTIFACT_LONG_SECONDS, seed + 6)
+    return reqs
+
+
+def artifact_phase(pipe: EammPipeline, device: str = "cuda") -> dict:
+    """Phase 7: the frozen artifact.  Exported from ``artifact_live``;
+    served by ``eamm-torch-serve --artifact`` (its load timed); every
+    program held bitwise to its live call; each route driven on the
+    server's ``ArtifactPipeline`` with launch counts; one round of
+    concurrent HTTP requests, every call the worker made made again and
+    held to its result bit for bit, each client's payload to its part of
+    it; the coalesced call against the live pipeline's same call, bitwise
+    and in turns -> route -> K1-K3 launches.  With cuDNN's deterministic
+    algorithms (restored after)."""
+    # cuDNN's default algorithms for some of ATNet's layers are not
+    # deterministic: two live calls of the keypoint stage differ on the
+    # card (chip_profile.py determinism), so programs and live calls are
+    # held to each other with deterministic algorithms, both sides alike
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _artifact_phase(pipe, device)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _artifact_phase(pipe: EammPipeline, device: str) -> dict:
+    from eamm_tpu_torch.cli import serve as serve_cli
+    from eamm_tpu_torch.infer import export as ex
+    from eamm_tpu_torch.serve_http import encode_request
+    live = artifact_live(pipe, device)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "model.eammx")
+        t0 = time.perf_counter()
+        meta = ex.export_render_artifact(
+            live, path, batch=4, frame_buckets=(ARTIFACT_FRAMES,),
+            emotional=True, emo_frame_buckets=(ARTIFACT_EMO_FRAMES,),
+            stream_segments=ARTIFACT_SEGMENTS,
+            unbounded_frames=ARTIFACT_FRAMES)
+        emit("artifact_export", wall_seconds=time.perf_counter() - t0,
+             bytes=os.path.getsize(path),
+             program_seconds=meta["export_seconds"],
+             programs=len(meta["export_seconds"]))
+        loads, load = [], ex.RenderArtifact.load.__func__
+
+        def timed_load(cls, *args, **kwargs):
+            t0 = time.perf_counter()
+            art = load(cls, *args, **kwargs)
+            loads.append(time.perf_counter() - t0)
+            return art
+
+        ex.RenderArtifact.load = classmethod(timed_load)
+        stop, fronts = threading.Event(), []
+        thread = threading.Thread(target=serve_cli.main, daemon=True, args=([
+            "--artifact", path, "--host", "127.0.0.1", "--port", "0",
+            "--max_delay_ms", "50", *(["--cpu"] if device == "cpu" else [])],),
+            kwargs=dict(stop_event=stop, ready=fronts.append))
+        thread.start()
+        try:
+            while not fronts:
+                thread.join(1.0)
+                if not thread.is_alive():
+                    raise AssertionError("the artifact server did not start")
+        finally:
+            ex.RenderArtifact.load = classmethod(load)
+        front = fronts[0]
+        art_pipe = front.server.pipeline
+        try:
+            emit("artifact_load", seconds=loads, server=front.url,
+                 max_batch=front.server.max_batch)
+            programs = hold_programs(art_pipe.artifact, live)
+            emit("artifact_programs", bitwise=sorted(programs),
+                 launches=programs)
+            reqs = artifact_requests(720)
+            batch = [reqs[f"coalesced.{i}"] for i in range(4)]
+            video = emotion_clip(20, 8)
+            routes = {
+                "coalesced": (lambda: art_pipe.render_batch_yuv420(
+                    *zip(*batch)), ARTIFACT_SECONDS),
+                "emotional": (lambda: art_pipe.render_yuv420(
+                    *reqs["emotional"], video, add_emo=True),
+                    ARTIFACT_SECONDS),
+                "stream": (lambda: joined(art_pipe.render_stream(
+                    *reqs["stream"], add_emo=False), {}), ARTIFACT_SECONDS),
+                "unbounded": (lambda: art_pipe.render_yuv420(
+                    *reqs["unbounded"], add_emo=False),
+                    ARTIFACT_LONG_SECONDS)}
+            by_route = {}
+            for route, (fn, seconds) in routes.items():
+                out, counts = drive(f"artifact {route}", RENDER_KERNELS, fn,
+                                    seconds)
+                by_route[route] = {k: counts[k] for k in RENDER_KERNELS}
+            # the same batch call on the live pipeline: bitwise, in turns
+            same_bits(routes["coalesced"][0](),
+                      live.render_batch_yuv420(*zip(*batch)),
+                      "artifact batch against live batch")
+            walls = {"artifact": [], "live": []}
+            for _ in range(3):
+                for name in ("artifact", "live", "live", "artifact"):
+                    fn = (routes["coalesced"][0] if name == "artifact" else
+                          (lambda: live.render_batch_yuv420(*zip(*batch))))
+                    t0 = time.perf_counter()
+                    fn()
+                    walls[name].append(1e3 * (time.perf_counter() - t0))
+            serving = artifact_http_round(front, art_pipe, encode_request,
+                                          video)
+        finally:
+            stop.set()
+            thread.join(120)
+        if thread.is_alive():
+            raise AssertionError("the artifact server did not stop")
+    emit("artifact_serving", **serving, batch_wall_ms={
+        k: {"median": float(np.median(v)), "min": min(v), "max": max(v)}
+        for k, v in walls.items()}, phase_seconds=time.perf_counter()
+        - t_phase, serving_peak_phase_5b=PEAKS.get("serving"))
+    return by_route
+
+
+def artifact_http_round(front, art_pipe, encode_request, video) -> dict:
+    """One round of concurrent HTTP clients on the artifact server: the
+    4 neutral requests, the emotional one (raw frames), a /render_stream
+    and the long request at once; every recorded call made again and held
+    bit for bit, each client's payload to its part of it -> the round's
+    report."""
+    reqs = artifact_requests(740)
+    rec = Recorder(art_pipe)
+    bodies = {k: encode_request(*r, transformed=video if k == "emotional"
+                                else None)
+              for k, r in reqs.items()}
+    jobs = {k: (lambda b=b: post(front.url + "/render", b))
+            for k, b in bodies.items() if k != "stream"}
+    jobs["stream"] = lambda: post_stream(front.url + "/render_stream",
+                                         bodies["stream"])
+    front.server.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, wall = concurrently(jobs)
+    stats, _ = post(front.url + "/stats", None, "GET")
+    peak = torch.cuda.max_memory_allocated()
+    for call in rec.calls:
+        again = rec.replay(call)
+        if call["method"] == "render_stream":
+            for (s0, p0), (_, p1) in zip(call["result"], again, strict=True):
+                same_bits(p0, p1, f"artifact stream segment {s0}")
+        else:
+            same_bits(call["result"], again, f"artifact {call['method']}")
+    latency = {}
+    for key, req in reqs.items():
+        call, row = served_by(rec.calls, req[1])
+        T = num_windows_for_samples(len(req[1]))
+        if key == "stream":
+            segs, first, seconds = out[key]
+            got = tuple(np.concatenate([s[k] for s in segs])
+                        for k in ("y", "u", "v"))
+            want = tuple(np.concatenate([p[i] for _, p in call["result"]])
+                         for i in range(3))
+        else:
+            payload, seconds = out[key]
+            got = _planes(payload)
+            want = tuple((p[row] if row is not None else p)[:T]
+                         for p in call["result"])
+        same_bits(got, want, f"artifact {key}: client payload")
+        latency.setdefault(key.split(".")[0], []).append(seconds)
+    return {"requests": len(reqs), "wall_seconds": wall, "stats": stats,
+            "calls": dict(collections.Counter(c["method"]
+                                              for c in rec.calls)),
+            "latency_seconds": {k: {"p50": float(np.median(v)),
+                                    "max": max(v)}
+                                for k, v in latency.items()},
+            "peak_memory_allocated": peak}
+
+
 # ---------------------------------------------------------------- phase 6
 
 def time_ms(fn, budget_s: float = 0.3) -> float:
@@ -1518,6 +1812,14 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# the warps' C entry points: ``launcher_call_ms`` times the wrapper's own
+# launch without the operator's dispatch (what a call cost before the
+# kernels were torch.library operators)
+WARP_ENTRIES = {"warp_wide": "eamm_warp_wide",
+                "warp_narrow": "eamm_warp_narrow",
+                "warp_shared": "eamm_warp_shared"}
+
+
 def timings(captured: dict) -> dict:
     """Phase 6; the warps at the random grid and at ``captured``, the main
     path's arguments; the keypoint expectations as ``kp_timings``."""
@@ -1544,9 +1846,13 @@ def timings(captured: dict) -> dict:
                        align_corners=False),
                    "store_ms": lambda: warp_cuda.store_only(sink)}
             device = in_turns({k: graphed(f) for k, f in fns.items()})
+            entry, img = WARP_ENTRIES[name], (image if name != "warp_shared"
+                                              else image[:1])
             eager = in_turns({"call_ms": (fns["ms"], 1),
                               "library_call_ms": (fns["library_ms"], 1),
-                              "store_call_ms": (fns["store_ms"], 1)})
+                              "store_call_ms": (fns["store_ms"], 1),
+                              "launcher_call_ms": (lambda: warp_cuda._launch(
+                                  entry, img, grid, False), 1)})
             rows[inputs] = {**device, **eager,
                             "plain_ms": time_ms(lambda: plain(*args))}
         out[name] = {
@@ -1582,6 +1888,13 @@ def kp_timings(gen: torch.Generator) -> dict:
            for name, (args, hm) in variants.items()}
     fns["kp_expectation_f32"] = graphed(lambda: kpx.kp_expectation(*f32))
     times = in_turns(fns)
+    eager = in_turns({
+        "kp_expectation_call_ms": (lambda: kpx.kp_expectation(*f32), 1),
+        "kp_expectation_launcher_call_ms": (
+            lambda: kpx._kp_expectation_cuda(*f32), 1),
+        "fused_call_ms": (lambda: fused(*f32, True), 1),
+        "fused_launcher_call_ms": (
+            lambda: kpx._kp_expectation_fused_cuda(*f32, True), 1)})
     timing = {}
     for name, t in times.items():
         args, hm = variants.get(name, (f32, False))
@@ -1592,13 +1905,16 @@ def kp_timings(gen: torch.Generator) -> dict:
         "kp_expectation": {
             "ms": times["kp_expectation_f32"]["median"],
             "plain_ms": time_ms(lambda: kpx.kp_expectation_plain(*f32)),
-            "library_ms": None, "bound": kp_bound(*f32[:2], False)},
+            "library_ms": None, "bound": kp_bound(*f32[:2], False),
+            "timing": {k: v for k, v in eager.items()
+                       if k.startswith("kp_expectation")}},
         "kp_expectation_fused": {
             "ms": times["f32_heat"]["median"],
             "plain_ms": time_ms(lambda: kpx.kp_expectation_fused_plain(
                 *f32, True)),
             "library_ms": None, "bound": kp_bound(*f32[:2], True),
-            "timing": timing,
+            "timing": {**timing, **{k: v for k, v in eager.items()
+                                    if k.startswith("fused")}},
             "plan": dataclasses.asdict(kpx.fused_launch_plan(
                 *f32[:2], True))},
     }
@@ -1644,6 +1960,7 @@ def main() -> int:
     worst = parity(captured_cases(batch_path(pipe)), worst)
     entry = entry_points()
     serving = serving_phase(pipe)
+    artifact_phase(pipe)
     times = timings(captured)
 
     # whose launches each row counts

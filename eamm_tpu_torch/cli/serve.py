@@ -11,7 +11,13 @@ PUT /emotion, GET /stats, GET /healthz).
         --checkpoint fomm.pth.tar --audio_checkpoint audio.pth.tar \\
         --emo_checkpoint emo.pth.tar --port 8080 --warmup_seconds 4
 
-The server runs on the CUDA device unless ``--cpu`` is given.
+The server runs on the CUDA device unless ``--cpu`` is given.  With
+``--artifact`` it serves a frozen render artifact
+(``eamm-torch-export``; ``infer/export.py`` ``ArtifactPipeline``) instead
+of the checkpoints: the batch size, transfer format and segments are the
+artifact's, and the artifact's device is used.
+
+    python -m eamm_tpu_torch.cli.serve --artifact model.eammx --port 8080
 """
 from __future__ import annotations
 
@@ -21,8 +27,9 @@ import argparse
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--artifact", default=None,
-                   help="serve a frozen render artifact: not ported yet "
-                        "(ROADMAP Queue 1 item 3); exits with a message")
+                   help="serve a frozen render artifact (eamm-torch-export) "
+                        "instead of --config and the checkpoints; its batch, "
+                        "transfer format and segments override the flags")
     p.add_argument("--config", help="path to config yaml")
     p.add_argument("--checkpoint",
                    help="FOMM .pth.tar (generator + kp_detector)")
@@ -109,27 +116,42 @@ def main(argv=None, stop_event=None, ready=None):
     loop, and a callback given the live ``HttpRenderFront``."""
     opt = build_parser().parse_args(argv)
     if opt.artifact:
-        raise SystemExit("--artifact: the frozen render artifact is not "
-                         "ported yet (ROADMAP Queue 1 item 3); serve from "
-                         "--config and the three checkpoints")
+        serve(opt, None, stop_event, ready)
+        return
     for flag in ("config", "checkpoint", "audio_checkpoint",
                  "emo_checkpoint"):
         if getattr(opt, flag) is None:
-            raise SystemExit(f"--{flag} is required")
+            raise SystemExit(f"--{flag} is required without --artifact")
     from eamm_tpu_torch.config import load_config
     serve(opt, load_config(opt.config), stop_event, ready)
 
 
+def artifact_pipeline(opt):
+    """``--artifact``: the loaded artifact's ``ArtifactPipeline``; the
+    server's batch size, transfer format and segments become the
+    artifact's."""
+    from eamm_tpu_torch.infer.export import ArtifactPipeline, RenderArtifact
+    art = RenderArtifact.load(opt.artifact, "cpu" if opt.cpu else "cuda")
+    pipe = ArtifactPipeline(art)
+    opt.max_batch = art.batch               # the batched programs' size
+    opt.transfer_format = pipe.options.transfer_format
+    stream = art.meta.get("streaming")
+    opt.overlap_segments = int(stream["segments"]) if stream else 1
+    return pipe
+
+
 def serve(opt, config: dict, stop_event=None, ready=None) -> None:
-    """What ``main`` runs once the flags are parsed and the config read:
-    build the pipeline, warm it, serve until ``stop_event`` (or SIGINT /
-    SIGTERM), then close the front and stop the server."""
+    """What ``main`` runs once the flags are parsed and the config read
+    (None with ``--artifact``): build the pipeline, warm it, serve until
+    ``stop_event`` (or SIGINT / SIGTERM), then close the front and stop the
+    server."""
     import threading
 
     from eamm_tpu_torch.serve import RenderServer
     from eamm_tpu_torch.serve_http import HttpRenderFront
 
-    pipe = build_pipeline(opt, config)
+    pipe = (artifact_pipeline(opt) if opt.artifact
+            else build_pipeline(opt, config))
     server = RenderServer(pipe, max_batch=opt.max_batch,
                           max_delay_ms=opt.max_delay_ms)
     front = None
@@ -139,7 +161,8 @@ def serve(opt, config: dict, stop_event=None, ready=None) -> None:
         front = HttpRenderFront(server, host=opt.host, port=opt.port)
         print(f"eamm-torch-serve listening on {front.url} "
               f"(max_batch={opt.max_batch}, {opt.transfer_format}, "
-              f"S={opt.overlap_segments}, {pipe.device})", flush=True)
+              f"S={opt.overlap_segments}, {pipe.options.device})",
+              flush=True)
         stop = stop_event or threading.Event()
         try:
             import signal

@@ -167,6 +167,15 @@ def prepare_pose_np(all_pose: np.ndarray, T: int,
     return pose[:T]
 
 
+def upload_sources(images, device) -> torch.Tensor:
+    """Source images [..., 256, 256, 3] -> float32 [N, 256, 256, 3] on
+    ``device``, from a fresh C-ordered copy: the strides, a lone image's
+    batch stride too, pick the convolutions' kernels, so the live routes and
+    the exported programs (``infer/export.py``) upload sources alike."""
+    return torch.as_tensor(np.array(images, np.float32).reshape(
+        -1, 256, 256, 3), device=device)
+
+
 def compose_kp(kp_audio: dict, emo: dict) -> dict:
     """Add emotion displacement rows 0, 1, 2 to keypoints 1 (x0.2), 4 and
     6; any further rows are unused."""
@@ -206,6 +215,47 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
         for m in module.modules():
             if isinstance(m, (KPHead, EmotionMap)):
                 m.reset_jacobian()
+
+
+_EURO_PARTS = ("raw", "filtered", "derivative", "started")
+
+
+def carry_names(emotional: bool) -> list[str]:
+    """The unbounded chunks' carry as flat tensors, in order: the LSTM's
+    (h, c), the audio filters' states, the first audio keypoints and, when
+    emotional, the emotion filters' states."""
+    def euro(group):
+        return [f"{group}.{k}.{p}" for k in ("value", "jacobian")
+                for p in _EURO_PARTS]
+    return (["lstm_h", "lstm_c", *euro("euro"), "kp_initial.value",
+             "kp_initial.jacobian"] + (euro("emo_euro") if emotional else []))
+
+
+def flatten_carry(carry: dict, emotional: bool) -> tuple:
+    """``_stream_kp_chunk``'s carry -> tensors in ``carry_names`` order."""
+    out = [*carry["lstm"]]
+    out += [t for k in ("value", "jacobian") for t in carry["euro"][k]]
+    out += [carry["kp_initial"][k] for k in ("value", "jacobian")]
+    if emotional:
+        out += [t for k in ("value", "jacobian") for t in carry["emo_euro"][k]]
+    return tuple(out)
+
+
+def unflatten_carry(flat, emotional: bool) -> dict:
+    """``flatten_carry``'s inverse."""
+    flat = list(flat)
+    if len(flat) != len(carry_names(emotional)):
+        raise ValueError(f"need {len(carry_names(emotional))} carry tensors, "
+                         f"got {len(flat)}")
+
+    def euro(parts):
+        return {"value": tuple(parts[:4]), "jacobian": tuple(parts[4:8])}
+
+    carry = {"lstm": (flat[0], flat[1]), "euro": euro(flat[2:10]),
+             "kp_initial": {"value": flat[10], "jacobian": flat[11]}}
+    if emotional:
+        carry["emo_euro"] = euro(flat[12:20])
+    return carry
 
 
 class EammPipeline:
@@ -465,13 +515,18 @@ class EammPipeline:
         trunk feature table (rows padded to a multiple of 32 with zero
         frames); renders given the handle skip the upload and the trunk."""
         frames = self._emotion_frames(transformed_video)
+        feats = self.emotion_table(frames) if self._trunk_route() else None
+        return EmotionHandle(frames=frames, feats=feats, n_frames=len(frames))
+
+    @torch.no_grad()
+    def emotion_table(self, frames: torch.Tensor) -> torch.Tensor:
+        """Emotion frames [U, 3, H, W] -> the trunk feature table [Ub, 512]
+        of a handle: the frames zero-padded to Ub, U rounded up to a
+        multiple of 32."""
         U = frames.shape[0]
-        feats = None
-        if self._trunk_route():
-            padded = frames.new_zeros((_bucket(U, 32), *frames.shape[1:]))
-            padded[:U] = frames
-            feats = self.trunk_features(padded)
-        return EmotionHandle(frames=frames, feats=feats, n_frames=U)
+        padded = frames.new_zeros((_bucket(U, 32), *frames.shape[1:]))
+        padded[:U] = frames
+        return self.trunk_features(padded)
 
     def _emotion_input(self, transformed_video, Tp: int) -> EmotionInput:
         """The emotion stage's input for a clip of Tp timesteps: frames cut
@@ -494,8 +549,9 @@ class EammPipeline:
     # ------------------------------------------------- whole-clip route
 
     def _source_tensor(self, source_image) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(source_image, np.float32),
-                               device=self.device).permute(2, 0, 1)[None]
+        """[256, 256, 3] -> [1, 3, 256, 256], a view of ``upload_sources``'s
+        [1, 256, 256, 3]."""
+        return upload_sources(source_image, self.device).permute(0, 3, 1, 2)
 
     def _prepare(self, source_image, waveform, all_pose, segments: int = 1):
         """Host-side padding: T real frames, bucketed to Tp, which splits
@@ -567,9 +623,12 @@ class EammPipeline:
                                              all_pose, S)
         kp_norm, kp_s = self._kp_stage(source, wav, pose, transformed_video,
                                        add_emo)
-        src, feats = self.source_features(source)
+        _, feats = self.source_features(source)
+        kv, kj = kp_norm["value"], kp_norm["jacobian"]
+        nhwc = source.permute(0, 2, 3, 1)
         yield from self._segments(T, pose.shape[0] // S, lambda a, b: (
-            self._decode_one(src, feats, kp_norm, kp_s, a, b)))
+            self._render_segment_impl(nhwc, feats, kp_s["value"],
+                                      kp_s["jacobian"], kv[a:b], kj[a:b])))
 
     @torch.no_grad()
     def _render_staged(self, source_image, waveform, all_pose,
@@ -604,13 +663,16 @@ class EammPipeline:
         return frames > o.stream_policy_frames
 
     @torch.no_grad()
-    def _stream_prelude(self, source: torch.Tensor):
-        """Once a stream: source kp [K,...], ATNet's identity feature, and
-        the source in ``compute_dtype`` with its encoded features."""
+    def _stream_prelude_impl(self, source: torch.Tensor) -> tuple:
+        """Once a stream: source [1, 256, 256, 3] -> (source kp value
+        [K, 2], jacobian [K, 2, 2], ATNet's identity feature [1, 512], the
+        encoded source features)."""
         m = self.models
-        kp_s = {k: v[0] for k, v in m["kp_detector"](source).items()}
-        image_feature = m["audio_feature"].encode_image(source)
-        return (kp_s, image_feature, *self.source_features(source))
+        src = source.permute(0, 3, 1, 2)
+        kp_s = m["kp_detector"](src)
+        image_feature = m["audio_feature"].encode_image(src)
+        _, feats = self.source_features(src)
+        return (kp_s["value"][0], kp_s["jacobian"][0], image_feature, feats)
 
     @torch.no_grad()
     def _stream_kp_chunk(self, kp_s: dict, image_feature: torch.Tensor,
@@ -671,8 +733,9 @@ class EammPipeline:
             handle = (transformed_video
                       if isinstance(transformed_video, EmotionHandle)
                       else self.prepare_emotion(transformed_video))
-        kp_s, image_feature, src, feats = self._stream_prelude(
-            self._source_tensor(source_image))
+        source = upload_sources(source_image, self.device)
+        ksv, ksj, image_feature, feats = self._stream_prelude_impl(source)
+        kp_s = {"value": ksv, "jacobian": ksj}
         n_samples = 1 + chunk_samples_len(K)
         carry, pending = None, []
         for c in range(n_chunks):
@@ -692,7 +755,9 @@ class EammPipeline:
                 self.link.upload(buf[s0:s0 + n_samples]),
                 self.link.upload(pose[c * K:(c + 1) * K]),
                 emotion, carry)
-            payload = self._decode_one(src, feats, kp_norm, kp_s, 0, K)
+            payload = self._render_segment_impl(
+                source, feats, ksv, ksj, kp_norm["value"],
+                kp_norm["jacobian"])
             pending.append((c * K, self.link.fetch_async(
                 payload, min(K, T - c * K))))
         for start, fetch in pending:
@@ -800,8 +865,7 @@ class EammPipeline:
             win[i, :w.shape[0]] = w
             pose[i, :w.shape[0]] = prepare_pose_np(poses[i], w.shape[0],
                                                    smooth=o.smooth_pose)
-        sources = torch.as_tensor(np.asarray(source_images, np.float32),
-                                  device=dev).permute(0, 3, 1, 2)
+        sources = upload_sources(source_images, dev).permute(0, 3, 1, 2)
         return T, sources, win, torch.as_tensor(pose, device=dev)
 
     @torch.no_grad()
@@ -831,12 +895,11 @@ class EammPipeline:
         S = max(1, self.options.overlap_segments)
         T, sources, windows, pose = self._prepare_batch(source_images,
                                                         waveforms, poses)
-        driving, kp_source = self.batch_keypoints(sources, windows, pose)
-        src, feats = self.source_features(sources)
-        F = self._batch_chunk(src.shape[0])
+        nhwc = sources.permute(0, 2, 3, 1)
+        kv, kj, ksv, ksj, feats = self._batch_kp_impl(nhwc, windows, pose)
         yield from self._segments(T, windows.shape[1] // S, lambda a, b: (
-            self.decode_frames(src, feats, driving, kp_source, a, b, F)),
-            axis=1)
+            self._batch_segment_impl(nhwc, feats, ksv, ksj, kv[:, a:b],
+                                     kj[:, a:b])), axis=1)
 
     def render_batch_uint8(self, source_images, waveforms,
                            poses) -> np.ndarray:
@@ -859,6 +922,113 @@ class EammPipeline:
                 "render_batch_yuv420 requires transfer_format='yuv420'")
         return self._join(self._batch_segments(source_images, waveforms,
                                                poses), axis=1)
+
+    # ------------------------------------------- the exportable functions
+    # Tensors in, tensors out: what ``infer/export.py`` freezes, one
+    # program per function and shape, and what the live routes above call,
+    # so that a program is bitwise its live call.  Sources are NHWC float32
+    # [N, 256, 256, 3] (the uploaded layout); MFCC windows, pose padding and
+    # uploads stay outside, as do the copies to the host.
+
+    def _emotion_program_input(self, frames: torch.Tensor,
+                               frame_index: torch.Tensor,
+                               table: bool = False) -> EmotionInput:
+        """Emotion frames as uploaded (``_upload_emotion``'s formats) and the
+        timestep -> frame index -> the emotion stage's input: the frames
+        (the raw-frames route of a whole clip), or with ``table`` and the
+        linear head a handle's trunk feature table (``emotion_table``; the
+        unbounded route)."""
+        decoded = self._decode_emotion(frames)
+        if table and self._trunk_route():
+            return EmotionInput(self.emotion_table(decoded), frame_index,
+                                True)
+        return EmotionInput(decoded, frame_index, False)
+
+    @torch.no_grad()
+    def _kp_stage_from_windows_impl(self, source, windows, pose,
+                                    emotion_frames=None,
+                                    frame_index=None) -> tuple:
+        """One clip's keypoint stage from its MFCC windows [Tp, 28, 12] and
+        pose [Tp, 6], emotional with ``emotion_frames`` (as uploaded) and
+        ``frame_index`` [Tp] -> (normalized driving kp value [Tp, K, 2],
+        jacobian [Tp, K, 2, 2], source kp value [K, 2], jacobian
+        [K, 2, 2], encoded source features)."""
+        src = source.permute(0, 3, 1, 2)
+        kp_s, driving, kp_initial = self.audio_keypoints(src, windows, pose)
+        emotion = (None if emotion_frames is None else
+                   self._emotion_program_input(emotion_frames, frame_index))
+        kp_norm = self.emotion_keypoints(kp_s, driving, kp_initial, emotion)
+        _, feats = self.source_features(src)
+        return (kp_norm["value"], kp_norm["jacobian"], kp_s["value"],
+                kp_s["jacobian"], feats)
+
+    @torch.no_grad()
+    def _render_segment_impl(self, source, feats, kp_s_value, kp_s_jacobian,
+                             kp_value, kp_jacobian) -> tuple:
+        """The frames of one clip's driving kp [n, ...] in chunks of
+        ``frame_chunk`` -> the payload, each tensor [n, ...]."""
+        src = source.permute(0, 3, 1, 2).to(self.options.compute_dtype)
+        return self._decode_one(
+            src, feats, {"value": kp_value, "jacobian": kp_jacobian},
+            {"value": kp_s_value, "jacobian": kp_s_jacobian}, 0,
+            kp_value.shape[0])
+
+    def _emo_render_from_windows_impl(self, source, windows, pose,
+                                      emotion_frames, frame_index) -> tuple:
+        """The emotional whole clip: ``_kp_stage_from_windows_impl`` then
+        ``_render_segment_impl`` over every frame -> the payload [Tp, ...]."""
+        kv, kj, ksv, ksj, feats = self._kp_stage_from_windows_impl(
+            source, windows, pose, emotion_frames, frame_index)
+        return self._render_segment_impl(source, feats, ksv, ksj, kv, kj)
+
+    @torch.no_grad()
+    def _batch_kp_impl(self, sources, windows, pose) -> tuple:
+        """N neutral clips' keypoint stage (``batch_keypoints``): windows
+        [N, Tp, 28, 12], pose [N, Tp, 6] -> (driving kp value [N, Tp, K, 2],
+        jacobian, source kp value [N, K, 2], jacobian, encoded sources)."""
+        src = sources.permute(0, 3, 1, 2)
+        driving, kp_source = self.batch_keypoints(src, windows, pose)
+        _, feats = self.source_features(src)
+        return (driving["value"], driving["jacobian"], kp_source["value"],
+                kp_source["jacobian"], feats)
+
+    @torch.no_grad()
+    def _batch_segment_impl(self, sources, feats, kp_s_value, kp_s_jacobian,
+                            kp_value, kp_jacobian) -> tuple:
+        """N identities' frames of driving kp [N, n, ...], identity-major in
+        chunks of ``_batch_chunk(N)`` -> the payload, each [N, n, ...]."""
+        src = sources.permute(0, 3, 1, 2).to(self.options.compute_dtype)
+        return self.decode_frames(
+            src, feats, {"value": kp_value, "jacobian": kp_jacobian},
+            {"value": kp_s_value, "jacobian": kp_s_jacobian}, 0,
+            kp_value.shape[1], self._batch_chunk(src.shape[0]))
+
+    def _batch_render_impl(self, sources, windows, pose) -> tuple:
+        """N neutral clips whole: ``_batch_kp_impl`` then
+        ``_batch_segment_impl`` over every frame -> the payload
+        [N, Tp, ...]."""
+        kv, kj, ksv, ksj, feats = self._batch_kp_impl(sources, windows, pose)
+        return self._batch_segment_impl(sources, feats, ksv, ksj, kv, kj)
+
+    def _stream_kp_chunk_impl(self, kp_s_value, kp_s_jacobian, image_feature,
+                              samples, pose, *rest, emotional: bool = False,
+                              first: bool = True) -> tuple:
+        """One unbounded chunk's keypoints (``_stream_kp_chunk``) with
+        tensors in and out: ``rest`` is (emotion frames as uploaded, frame
+        index [K]) when ``emotional``, then, unless ``first``, the carry
+        as ``_stream_kp_chunk_impl`` returned it -> (normalized kp value
+        [K, K_kp, 2], jacobian, *carry) with the carry flattened in
+        ``carry_names(emotional)`` order."""
+        emotion = None
+        if emotional:
+            frames, index, *rest = rest
+            emotion = self._emotion_program_input(frames, index, table=True)
+        carry = None if first else unflatten_carry(rest, emotional)
+        kp_norm, carry = self._stream_kp_chunk(
+            {"value": kp_s_value, "jacobian": kp_s_jacobian}, image_feature,
+            samples, pose, emotion, carry)
+        return (kp_norm["value"], kp_norm["jacobian"],
+                *flatten_carry(carry, emotional))
 
     # -------------------------------------------------------- constructors
 

@@ -5,7 +5,13 @@ RGB image (blurred and downsampled x0.25 first); ``KPDetectorA`` reads the
 35-channel 64x64 map of the audio decoder.  Both end in two unpadded 7x7
 convs (``kp``: K logit maps, ``jacobian``: 4K maps), run here as one conv
 whose output holds [K logit maps | 4K Jacobian maps], and the keypoint
-expectation kernel reads both slices of it in place.
+expectation kernel reads both slices of it.  The JAX module's eval form,
+``conv_s2d`` (block 4, no padding) then the VALID slice, is here
+(``heads_conv`` with ``fold_heads``) but not taken: on an NVIDIA H100 80GB
+HBM3 at 700 W it took 13.55 ms of a neutral 10 s request against the
+literal conv's 8.37 ms (``chip_profile.py`` ``conv_forms``, both
+detectors' heads; the audio heads read 249 maps of 35 x 64 x 64 in
+float32, and the fold multiplies 3.6x the operations).
 
 Returns {'value': [B, K, 2], 'jacobian': [B, K, 2, 2]}.
 """
@@ -18,19 +24,46 @@ import torch.nn.functional as F
 from eamm_tpu_torch.models.blocks import Hourglass
 from eamm_tpu_torch.ops.antialias import antialias_downsample
 from eamm_tpu_torch.ops.kp_expectation import kp_expectation
+from eamm_tpu_torch.ops.subpixel import conv_s2d_folded, fold_conv_kernel_s2d
+
+HEADS_BLOCK = 4          # of the JAX eval form (module docstring)
+
+
+def fold_heads(kp: nn.Conv2d, jacobian: nn.Conv2d) -> tuple:
+    """Both heads' weights concatenated and folded for ``conv_s2d`` with no
+    padding -> (weight, bias repeated per phase, row pads, column pads)."""
+    w, pads_r, pads_c = fold_conv_kernel_s2d(
+        torch.cat([kp.weight, jacobian.weight]), HEADS_BLOCK, pad=0)
+    bias = torch.cat([kp.bias, jacobian.bias])
+    return w, bias.repeat_interleave(HEADS_BLOCK ** 2), pads_r, pads_c
+
+
+def heads_conv(feature_map: torch.Tensor, kp: nn.Conv2d, jacobian: nn.Conv2d,
+               folded: tuple | None = None) -> torch.Tensor:
+    """[K logit maps | 4K Jacobian maps] of the two 7x7 VALID heads, one
+    contiguous [B, 5K, h, w] tensor: by one literal conv, or with
+    ``folded`` (``fold_heads``) by ``conv_s2d`` then the VALID slice."""
+    if folded is None:
+        y = F.conv2d(feature_map, torch.cat([kp.weight, jacobian.weight]),
+                     torch.cat([kp.bias, jacobian.bias]))
+    else:
+        w, b, pads_r, pads_c = folded
+        H, W = feature_map.shape[2:]
+        k = kp.kernel_size[0]
+        y = conv_s2d_folded(feature_map, w, pads_r, pads_c, HEADS_BLOCK,
+                            b)[:, :, :H - k + 1, :W - k + 1]
+    # the kernel reads rows of h*w in place: a VALID slice, or the
+    # channels_last output of a channels_last feature map (N sources of a
+    # batched render), is copied once
+    return y.contiguous()
 
 
 def keypoint_heads(feature_map: torch.Tensor, kp: nn.Conv2d,
                    jacobian: nn.Conv2d, temperature: float) -> dict:
-    """The two 7x7 VALID heads run as one conv whose output holds [K logit
-    maps | 4K Jacobian maps], then the expectation kernel reads both slices
-    in place."""
+    """The two 7x7 VALID heads as one literal conv (``heads_conv``), then
+    the expectation kernel reads both slices of their output in place."""
     K = kp.out_channels
-    weight = torch.cat([kp.weight, jacobian.weight])
-    bias = torch.cat([kp.bias, jacobian.bias])
-    # a channels_last feature map (N sources of a batched render) gives a
-    # channels_last output, whose h*w rows the kernel cannot read in place
-    y = F.conv2d(feature_map, weight, bias).contiguous()        # [B, 5K, h, w]
+    y = heads_conv(feature_map, kp, jacobian)                  # [B, 5K, h, w]
     B, _, h, w = y.shape
     value, jac = kp_expectation(y[:, :K], y[:, K:].view(B, K, 4, h, w),
                                 temperature)

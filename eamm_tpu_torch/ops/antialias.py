@@ -19,13 +19,24 @@ def gaussian_kernel_1d(sigma: float = 1.5) -> np.ndarray:
     return (taps / taps.sum()).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+def _upload_taps(sigma: float, dtype: torch.dtype, device: torch.device
+                 ) -> torch.Tensor:
+    return torch.as_tensor(gaussian_kernel_1d(sigma), dtype=dtype,
+                           device=device)
+
+
+_cached_taps = functools.lru_cache(maxsize=None)(_upload_taps)
+
+
 def _taps(sigma: float, dtype: torch.dtype, device: torch.device
           ) -> torch.Tensor:
     """``gaussian_kernel_1d`` on ``device``, uploaded once (an upload from
-    pageable memory would wait for the device's queue)."""
-    return torch.as_tensor(gaussian_kernel_1d(sigma), dtype=dtype,
-                           device=device)
+    pageable memory would wait for the device's queue); while
+    ``torch.export`` traces, made anew as a program constant, since a tensor
+    of the trace must not enter the cache."""
+    if torch.compiler.is_compiling():
+        return _upload_taps(sigma, dtype, device)
+    return _cached_taps(sigma, dtype, device)
 
 
 def antialias_downsample(x: torch.Tensor, scale: float,

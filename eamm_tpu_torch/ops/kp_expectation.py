@@ -12,9 +12,13 @@ model calls it).  From logits ``pred`` [B, K, h, w] and Jacobian maps ``jmap``
   * ``jacobian`` [B, K, 2, 2] — the same weighting of the four maps.
 
 The kernel (``csrc/kp_expectation.cu``) reads both inputs in place through
-their strides, so the heads pass slices of one conv output uncopied.  A CPU
-tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  Each wrapper counts its launches in its ``launches`` attribute.
+their strides, so the heads pass slices of one conv output uncopied.  Each
+kernel is an operator, ``torch.ops.eamm.kp_expectation`` and
+``kp_expectation_fused`` (``torch.library.custom_op``), kept as a call by
+``torch.export``: its CPU implementation is the plain version, its CUDA
+implementation launches the kernel or raises and counts the launch in the
+wrapper's ``launches`` attribute, and its fake implementation gives the
+outputs' shapes.
 """
 from __future__ import annotations
 
@@ -49,16 +53,37 @@ def _check(pred: torch.Tensor, jmap: torch.Tensor) -> None:
         raise ValueError(f"pred on {pred.device}, jmap on {jmap.device}")
 
 
+def _cuda_check(name: str, pred: torch.Tensor) -> None:
+    if pred.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: tensors on {pred.device}; the kernel runs "
+                         "on CUDA and the plain version on the CPU")
+
+
 def kp_expectation(pred: torch.Tensor, jmap: torch.Tensor,
                    temperature: float):
     """(value [B,K,2], jacobian [B,K,2,2]) from pred [B,K,h,w] and jmap
     [B,K,4,h,w]."""
     _check(pred, jmap)
-    if pred.device.type == "cpu":
-        return kp_expectation_plain(pred, jmap, temperature)
-    if pred.device.type != "cuda":
-        raise ValueError(f"kp_expectation: tensors on {pred.device}; the "
-                         "kernel runs on CUDA and the plain version on the CPU")
+    _cuda_check("kp_expectation", pred)
+    return kp_expectation_op(pred, jmap, float(temperature))
+
+
+@torch.library.custom_op("eamm::kp_expectation", mutates_args=(),
+                         device_types="cpu")
+def kp_expectation_op(pred: torch.Tensor, jmap: torch.Tensor,
+                      temperature: float) -> tuple[torch.Tensor, torch.Tensor]:
+    return kp_expectation_plain(pred, jmap, temperature)
+
+
+@kp_expectation_op.register_fake
+def _kp_expectation_fake(pred, jmap, temperature):
+    B, K = pred.shape[:2]
+    return (pred.new_empty((B, K, 2), dtype=torch.float32),
+            pred.new_empty((B, K, 2, 2), dtype=torch.float32))
+
+
+@kp_expectation_op.register_kernel("cuda")
+def _kp_expectation_cuda(pred, jmap, temperature):
     if pred.dtype != torch.float32 or jmap.dtype != torch.float32:
         raise TypeError(f"kp_expectation: need float32, got {pred.dtype} and "
                         f"{jmap.dtype}")
@@ -185,13 +210,34 @@ def kp_expectation_fused(prediction: torch.Tensor, jmap: torch.Tensor,
     five planes (``fused_plan``).  The TPU kernel's row and lane padding
     with -1e9 logits is TPU layout and has no counterpart here."""
     _check(prediction, jmap)
-    if prediction.device.type == "cpu":
-        return kp_expectation_fused_plain(prediction, jmap, temperature,
-                                          want_heatmap)
-    if prediction.device.type != "cuda":
-        raise ValueError(f"kp_expectation_fused: tensors on "
-                         f"{prediction.device}; the kernel runs on CUDA and "
-                         "the plain version on the CPU")
+    _cuda_check("kp_expectation_fused", prediction)
+    value, jac, heat = kp_expectation_fused_op(
+        prediction, jmap, float(temperature), bool(want_heatmap))
+    return value, jac, heat if want_heatmap else None
+
+
+@torch.library.custom_op("eamm::kp_expectation_fused", mutates_args=(),
+                         device_types="cpu")
+def kp_expectation_fused_op(prediction: torch.Tensor, jmap: torch.Tensor,
+                            temperature: float, want_heatmap: bool
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The operator: the heatmap is an empty tensor when not wanted."""
+    value, jac, heat = kp_expectation_fused_plain(prediction, jmap,
+                                                  temperature, want_heatmap)
+    return value, jac, heat if want_heatmap else prediction.new_empty(0)
+
+
+@kp_expectation_fused_op.register_fake
+def _kp_expectation_fused_fake(prediction, jmap, temperature, want_heatmap):
+    B, K = prediction.shape[:2]
+    return (prediction.new_empty((B, K, 2), dtype=torch.float32),
+            prediction.new_empty((B, K, 2, 2), dtype=torch.float32),
+            prediction.new_empty(prediction.shape if want_heatmap else 0))
+
+
+@kp_expectation_fused_op.register_kernel("cuda")
+def _kp_expectation_fused_cuda(prediction, jmap, temperature, want_heatmap):
     if prediction.dtype not in _DTYPES or jmap.dtype not in _DTYPES:
         raise TypeError(f"kp_expectation_fused: prediction {prediction.dtype},"
                         f" jmap {jmap.dtype}; each must be float32 or "
@@ -209,7 +255,7 @@ def kp_expectation_fused(prediction: torch.Tensor, jmap: torch.Tensor,
     value = torch.empty((B, K, 2), dtype=torch.float32, device=dev)
     jac = torch.empty((B, K, 2, 2), dtype=torch.float32, device=dev)
     heat = (torch.empty((B, K, h, w), dtype=prediction.dtype, device=dev)
-            if want_heatmap else None)
+            if want_heatmap else prediction.new_empty(0))
     lib = kernels.library("kp_expectation")
     fn = lib.eamm_kp_expectation_fused
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 2
@@ -223,7 +269,7 @@ def kp_expectation_fused(prediction: torch.Tensor, jmap: torch.Tensor,
               jmap.data_ptr(), _DTYPES[jmap.dtype],
               jmap.stride(0), jmap.stride(1), jmap.stride(2),
               value.data_ptr(), jac.data_ptr(),
-              heat.data_ptr() if heat is not None else None,
+              heat.data_ptr() if want_heatmap else None,
               B, K, h, w, float(temperature), plan.smem_bytes,
               int(plan.tables), plan.blocks,
               torch.cuda.current_stream(dev).cuda_stream)

@@ -78,12 +78,22 @@ def num_windows(n_mfcc_frames: int) -> int:
     return max(0, n_mfcc_frames // 4 - 6)
 
 
-@functools.lru_cache(maxsize=None)
-def _tables(device: torch.device) -> tuple:
-    """The filterbank, DCT and lifter on ``device``, uploaded once (an
-    upload from pageable memory would wait for the device's queue)."""
+def _upload_tables(device: torch.device) -> tuple:
     return tuple(torch.from_numpy(t).to(device)
                  for t in (mel_filterbank(), dct_matrix(), lifter_taps()))
+
+
+_cached_tables = functools.lru_cache(maxsize=None)(_upload_tables)
+
+
+def _tables(device: torch.device) -> tuple:
+    """The filterbank, DCT and lifter on ``device``, uploaded once (an
+    upload from pageable memory would wait for the device's queue); while
+    ``torch.export`` traces, made anew as program constants, since a tensor
+    of the trace must not enter the cache."""
+    if torch.compiler.is_compiling():
+        return _upload_tables(device)
+    return _cached_tables(device)
 
 
 def _mfcc_from_emph(emph: torch.Tensor, nframes: int) -> torch.Tensor:

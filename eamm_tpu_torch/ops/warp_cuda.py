@@ -11,11 +11,16 @@ grid [B, Ho, Wo, 2], each float32 or bfloat16, grid b samples image
 b // (B // Bi), float32 arithmetic rounded once to the image dtype.  The kernels are in
 ``csrc/warp.cu``.
 
-A CPU tensor takes the plain version (``ops.warp.grid_sample``); a CUDA
-tensor launches the kernel or raises.  Each wrapper counts its launches in
-its ``launches`` attribute.  ``store_only`` is a yardstick, no warp: it
-writes zeros over a tensor's bytes, the card's write ceiling for a kernel
-that writes them.
+Each kernel is an operator, ``torch.ops.eamm.warp_wide``, ``warp_narrow``
+and ``warp_shared`` (``torch.library.custom_op``), so that ``torch.export``
+keeps it as a call: its CPU implementation is the plain version
+(``ops.warp.grid_sample``), its CUDA implementation launches the kernel or
+raises, and its fake implementation gives the output's shape.  The Python
+wrappers check what the kernels take and call the operators; the CUDA
+implementation counts its launches in the wrapper's ``launches``
+attribute, so the calls of an exported program count too.  ``store_only``
+is a yardstick, no warp: it writes zeros over a tensor's bytes, the card's
+write ceiling for a kernel that writes them.
 """
 from __future__ import annotations
 
@@ -79,9 +84,6 @@ _typed: dict = {}
 def _launch(entry: str, image: torch.Tensor, grid: torch.Tensor,
             align_corners: bool) -> torch.Tensor:
     group = check_shared_batch(image, grid)
-    if image.device.type != "cuda":
-        raise ValueError(f"{entry}: tensors on {image.device}; the kernel "
-                         "runs on CUDA and the plain version on the CPU")
     if image.dtype not in _DTYPES or grid.dtype not in _DTYPES:
         raise TypeError(f"{entry}: image {image.dtype}, grid {grid.dtype}; "
                         "each must be float32 or bfloat16")
@@ -106,19 +108,78 @@ def _launch(entry: str, image: torch.Tensor, grid: torch.Tensor,
     return out
 
 
+def _device_check(name: str, t: torch.Tensor) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: tensors on {t.device}; the kernel runs on "
+                         "CUDA and the plain version on the CPU")
+
+
+def _warp_fake(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    return image.new_empty((grid.shape[0], grid.shape[1], grid.shape[2],
+                            image.shape[3]))
+
+
+@torch.library.custom_op("eamm::warp_wide", mutates_args=(),
+                         device_types="cpu")
+def warp_wide_op(image: torch.Tensor, grid: torch.Tensor,
+                 align_corners: bool) -> torch.Tensor:
+    return grid_sample_plain(image, grid, align_corners)
+
+
+@warp_wide_op.register_kernel("cuda")
+def _warp_wide_cuda(image, grid, align_corners):
+    out = _launch("eamm_warp_wide", image, grid, align_corners)
+    grid_sample_wide.launches += 1
+    return out
+
+
+@torch.library.custom_op("eamm::warp_narrow", mutates_args=(),
+                         device_types="cpu")
+def warp_narrow_op(image: torch.Tensor, grid: torch.Tensor,
+                   align_corners: bool) -> torch.Tensor:
+    return grid_sample_plain(image, grid, align_corners)
+
+
+@warp_narrow_op.register_kernel("cuda")
+def _warp_narrow_cuda(image, grid, align_corners):
+    out = _launch("eamm_warp_narrow", image, grid, align_corners)
+    grid_sample_narrow.launches += 1
+    return out
+
+
+@torch.library.custom_op("eamm::warp_shared", mutates_args=(),
+                         device_types="cpu")
+def warp_shared_op(source: torch.Tensor, grids: torch.Tensor,
+                   align_corners: bool) -> torch.Tensor:
+    return grid_sample_shared_plain(source, grids, align_corners)
+
+
+@warp_shared_op.register_kernel("cuda")
+def _warp_shared_cuda(source, grids, align_corners):
+    out = _launch("eamm_warp_shared", source[None], grids, align_corners)
+    grid_sample_shared.launches += 1
+    return out
+
+
+warp_wide_op.register_fake(lambda image, grid, align_corners:
+                           _warp_fake(image, grid))
+warp_narrow_op.register_fake(lambda image, grid, align_corners:
+                             _warp_fake(image, grid))
+warp_shared_op.register_fake(lambda source, grids, align_corners:
+                             _warp_fake(source[None], grids))
+
+
 def grid_sample_wide(image: torch.Tensor, grid: torch.Tensor,
                      align_corners: bool = False) -> torch.Tensor:
     """Warp for channel counts that are a multiple of 8 (the bottleneck's
     256): a block per 8x8 tile of output pixels, a thread per 16 bytes of
     channels."""
-    if image.device.type == "cpu":
-        return grid_sample_plain(image, grid, align_corners)
-    if image.dim() != 4 or image.shape[-1] % 8:
-        raise ValueError(f"grid_sample_wide: need [Bi,H,W,C] with C % 8 == 0, "
-                         f"got {tuple(image.shape)}")
-    out = _launch("eamm_warp_wide", image, grid, align_corners)
-    grid_sample_wide.launches += 1
-    return out
+    if image.device.type != "cpu":
+        if image.dim() != 4 or image.shape[-1] % 8:
+            raise ValueError(f"grid_sample_wide: need [Bi,H,W,C] with "
+                             f"C % 8 == 0, got {tuple(image.shape)}")
+        _device_check("grid_sample_wide", image)
+    return warp_wide_op(image, grid, align_corners)
 
 
 def grid_sample_narrow(image: torch.Tensor, grid: torch.Tensor,
@@ -126,15 +187,14 @@ def grid_sample_narrow(image: torch.Tensor, grid: torch.Tensor,
     """Warp for 1 to 8 channels (dense motion's RGB source): each block
     holds one source in shared memory (``narrow_smem_bytes``) and walks the
     pixels of the grids that read it."""
-    if image.device.type == "cpu":
-        return grid_sample_plain(image, grid, align_corners)
-    if image.dim() != 4 or not 1 <= image.shape[-1] <= 8:
-        raise ValueError(f"grid_sample_narrow: need [Bi,H,W,C] with "
-                         f"1 <= C <= 8, got {tuple(image.shape)}")
-    narrow_smem_bytes(*image.shape[1:], image.dtype)
-    out = _launch("eamm_warp_narrow", image, grid, align_corners)
-    grid_sample_narrow.launches += 1
-    return out
+    if image.device.type != "cpu":
+        if image.dim() != 4 or not 1 <= image.shape[-1] <= 8:
+            raise ValueError(f"grid_sample_narrow: need [Bi,H,W,C] with "
+                             f"1 <= C <= 8, got {tuple(image.shape)}")
+        narrow_smem_bytes(*image.shape[1:], image.dtype)
+        _device_check("grid_sample_narrow", image)
+        check_shared_batch(image, grid)
+    return warp_narrow_op(image, grid, align_corners)
 
 
 def grid_sample_shared(source: torch.Tensor, grids: torch.Tensor,
@@ -151,11 +211,8 @@ def grid_sample_shared(source: torch.Tensor, grids: torch.Tensor,
     if source.dim() != 3:
         raise ValueError(f"grid_sample_shared: need source [Hs,Ws,C], got "
                          f"{tuple(source.shape)}")
-    if source.device.type == "cpu":
-        return grid_sample_shared_plain(source, grids, align_corners)
-    out = _launch("eamm_warp_shared", source[None], grids, align_corners)
-    grid_sample_shared.launches += 1
-    return out
+    _device_check("grid_sample_shared", source)
+    return warp_shared_op(source, grids, align_corners)
 
 
 def store_only(out: torch.Tensor) -> torch.Tensor:

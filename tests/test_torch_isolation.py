@@ -33,7 +33,9 @@ ENTRY_MODULES = ["eamm_tpu_torch.serve", "eamm_tpu_torch.serve_http",
                  "eamm_tpu_torch.config", "eamm_tpu_torch.data.native",
                  "eamm_tpu_torch.data.augmentation",
                  "eamm_tpu_torch.data.landmarks",
-                 "eamm_tpu_torch.data.preprocess"]
+                 "eamm_tpu_torch.data.preprocess",
+                 "eamm_tpu_torch.ops.subpixel", "eamm_tpu_torch.infer.export",
+                 "eamm_tpu_torch.cli.export"]
 
 
 @pytest.fixture(scope="module", autouse=True)
