@@ -126,6 +126,32 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    worker made made again and held to its result bit for bit, each
    client's payload to its part of it, with latencies and the peak
    device memory while serving beside phase 5b's.
+8. training (after phase 7): the three backward kernels (K1b, K2b, K3b)
+   against their plain versions (the autodiff of the plain forwards) at
+   the fine-tune step's shapes (B 6, 4 supervised frames, 96 keypoint
+   rows; the warps' grids from U(-1.2, 1.2)), in float32 and bfloat16,
+   with both gradients and each alone, plus ragged outputs over two
+   sources and align_corners=True: float32 within 1e-5 relative L2 and
+   1e-4 of the largest |reference| in max |difference|, bfloat16 within
+   1e-2 both; a finite-difference check per operator (``gradcheck`` of
+   the plain version in float64 on the card, the kernel's float32
+   gradient against central differences of its forward); one
+   ``train_part1_fine_tune`` gradient (perceptual and GAN on, then the
+   discriminator's) at TINY_CONFIG widths on the CPU in float64, on the
+   CPU in float32 and on the card in float32 (losses within rtol 1e-4,
+   BatchNorm statistics within 1e-5, each gradient leaf within 1e-3
+   relative L2 or three times the CPU float32 step's own error on it);
+   then ``eamm-torch-run``'s ``main`` on a seeded synthetic LRW tree
+   (packed frames) at FULL_CONFIG widths and the YAMLs' batches
+   (``train_part1`` 8 x 16 frames; ``train_part1_fine_tune`` 6 x 16,
+   perceptual and, by override, GAN on): TRAIN_STEPS steps each with the
+   launch counts zeroed just before and read just after (K3 and K3b must
+   launch in part1, all six in the fine-tune), each step's wall seconds,
+   the peak device memory, every logged loss finite, the trained models
+   changed and the frozen ones (weights and BatchNorm statistics) bit
+   for bit as drawn, no cuDNN LSTM compaction warning, a checkpoint and
+   one more step resumed from it with ``--checkpoint latest``; and one
+   fine-tune step with ``--compute_dtype bfloat16``.
 6. kernel times at the main-path shapes: the kernel, its plain version,
    one PyTorch library call computing the same function where there is
    one, and the bound (the larger of bytes at 3.35 TB/s and operations at
@@ -147,16 +173,23 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    launch ``plan`` the wrapper makes for the first); K3's and K5's eager
    call through the operator and through their CUDA implementation
    called directly, in turns (``*call_ms`` in ``timing``).
-   The plain versions are timed eager.
+   The plain versions are timed eager.  The backward kernels at the
+   fine-tune step's shapes in float32 with the gradients the training
+   path asks for (K1b both, K2b the grid's), beside
+   ``aten.grid_sampler_2d_backward`` for the warps; their bound counts
+   the image gradient's float32 accumulator as zeroed, read and written
+   once per element.
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line
 (with the path whose launches each row counts, the launches on every
-request by path and on every serving route), and last
+request by path, on every serving route and per training step of each
+mode; the backward rows count the fine-tune run), and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -165,6 +198,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -266,6 +300,35 @@ KERNELS = {
                              "eamm_tpu/ops/kp_pallas.py:79"),
 }
 RENDER_KERNELS = ("warp_wide", "warp_narrow", "kp_expectation")
+# the backward kernels of training; the TPU package differentiates XLA's
+# warp (ops/warp.py grid_sample) and K3's custom_vjp (_bwd)
+BACKWARD_KERNELS = {
+    "warp_wide_backward": (warp_cuda.warp_wide_backward,
+                           warp_cuda.grid_sample_backward_plain,
+                           "eamm_tpu_torch/csrc/warp_backward.cu",
+                           "eamm_tpu/ops/warp.py:47"),
+    "warp_narrow_backward": (warp_cuda.warp_narrow_backward,
+                             warp_cuda.grid_sample_backward_plain,
+                             "eamm_tpu_torch/csrc/warp_backward.cu",
+                             "eamm_tpu/ops/warp.py:47"),
+    "kp_expectation_backward": (kpx.kp_expectation_backward,
+                                kpx.kp_expectation_backward_plain,
+                                "eamm_tpu_torch/csrc/kp_expectation.cu",
+                                "eamm_tpu/ops/kp_expectation.py:122"),
+}
+KERNELS.update(BACKWARD_KERNELS)
+TRAIN_KERNELS = RENDER_KERNELS + tuple(BACKWARD_KERNELS)
+# each kernel's __global__ function in csrc/, as a profile names it
+KERNEL_SYMBOLS = {"warp_wide": "warp_wide_kernel",
+                  "warp_narrow": "warp_narrow_kernel",
+                  "kp_expectation": "kp_expectation_kernel",
+                  "warp_wide_backward": "warp_wide_backward_kernel",
+                  "warp_narrow_backward": "warp_narrow_backward_kernel",
+                  "kp_expectation_backward": "kp_expectation_backward_kernel"}
+# the backward kernels' bounds against their plain versions: float32
+# relative L2 error and max |difference| / max |reference| (atomics
+# reorder the sums); bfloat16 both within 1e-2
+GRAD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 
 
 def emit(phase: str, **fields) -> None:
@@ -455,6 +518,171 @@ def parity(cases: list, worst: dict | None = None) -> dict:
              temperature=args[2] if name.startswith("kp") else None,
              options=kw, max_abs_err=err, tol=tols)
     return worst
+
+
+# ------------------------------------------------ phase 3b: the backward
+
+def warp_grad_case(Bi: int, B: int, C: int, dtype: torch.dtype,
+                   gen: torch.Generator, hw=(64, 64), need=(True, True),
+                   align: bool = False):
+    """(grad_out, image, grid, align_corners, need_image, need_grid) for a
+    warp backward: a random [Bi,64,64,C] image, a [B,*hw,2] grid in
+    U(-1.2, 1.2) and a random output gradient, in ``dtype``."""
+    image, grid = warp_case(Bi, B, hw, C, dtype, gen)
+    grad_out = torch.randn((B, *hw, C), generator=gen, device="cuda"
+                           ).to(dtype)
+    return (grad_out, image, grid, align, *need)
+
+
+def kp_grad_case(N: int, gen: torch.Generator, h: int = 58, w: int = 58):
+    """(pred, jmap, temperature, g_value, g_jac) as the heads pass them
+    (slices of one conv output), with random output gradients."""
+    pred, jmap, temperature = kp_case(N, gen, h, w)
+    K = pred.shape[1]
+    return (pred, jmap, temperature,
+            torch.randn((N, K, 2), generator=gen, device="cuda"),
+            torch.randn((N, K, 2, 2), generator=gen, device="cuda"))
+
+
+def grad_cases(B: int = 6, frames: int = 4, N: int = 96) -> list:
+    """(kernel, dtype, args) of the backward kernels at the fine-tune
+    step's shapes (B identities, ``frames`` supervised frames, N keypoint
+    rows), both gradients and the ones the training path asks for, plus a
+    ragged output over two sources and align_corners=True."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n = B * frames
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for need in ((True, True), (False, True), (True, False)):
+            cases.append(("warp_wide_backward", dtype,
+                          warp_grad_case(n, n, 256, dtype, gen, need=need)))
+            cases.append(("warp_narrow_backward", dtype,
+                          warp_grad_case(n, 11 * n, 3, dtype, gen,
+                                         need=need)))
+        cases.append(("warp_wide_backward", dtype,
+                      warp_grad_case(2, 4, 256, dtype, gen, hw=(13, 17))))
+        cases.append(("warp_narrow_backward", dtype,
+                      warp_grad_case(2, 6, 3, dtype, gen, hw=(13, 17),
+                                     align=True)))
+    for rows, hw in ((N, (58, 58)), (B, (58, 58)), (3, (13, 17))):
+        cases.append(("kp_expectation_backward", torch.float32,
+                      kp_grad_case(rows, gen, *hw)))
+    return cases
+
+
+def grad_errors(got, want) -> tuple[float, float]:
+    """(relative L2 error, max |difference| / max |reference|)."""
+    g, w = got.double(), want.double()
+    scale = w.abs().max().item() or 1.0
+    norm = w.norm().item() or 1.0
+    return ((g - w).norm().item() / norm,
+            (g - w).abs().max().item() / scale)
+
+
+def grad_parity(cases: list) -> dict:
+    """Each backward kernel against its plain version (autodiff of the
+    plain forward) on the same inputs, held to GRAD_TOL; returns the
+    largest max |difference| per kernel."""
+    worst = {name: 0.0 for name in BACKWARD_KERNELS}
+    for name, dtype, args in cases:
+        wrapper, plain = BACKWARD_KERNELS[name][:2]
+        got, want = wrapper(*args), plain(*args)
+        torch.cuda.synchronize()
+        rel_tol, max_tol = GRAD_TOL[dtype]
+        errs = []
+        for g, w in zip(got, want):
+            if w.numel() == 0:
+                if g.numel() != 0:
+                    raise AssertionError(f"{name}: a gradient not asked for")
+                continue
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"{name}: {g.shape} {g.dtype} against "
+                                     f"{w.shape} {w.dtype}")
+            rel, mx = grad_errors(g, w)
+            errs.append({"rel_l2": rel, "max_rel": mx})
+            if not (rel <= rel_tol and mx <= max_tol):
+                raise AssertionError(f"{name} {dtype}: relative L2 {rel}, "
+                                     f"max {mx} (bounds {rel_tol}, "
+                                     f"{max_tol})")
+            worst[name] = max(worst[name],
+                              (g.float() - w.float()).abs().max().item())
+        tensors = [a for a in args if torch.is_tensor(a)]
+        emit("grad_parity", kernel=name, dtype=str(dtype),
+             shapes=[list(a.shape) for a in tensors],
+             flags=[a for a in args if isinstance(a, bool)], errors=errs,
+             bounds=GRAD_TOL[dtype])
+    return worst
+
+
+def finite_differences() -> dict:
+    """One finite-difference check per backward op at a small shape:
+    ``torch.autograd.gradcheck`` of the plain version in float64 on the
+    card, and the kernel's gradient in float32 against central
+    differences of the kernel's own forward (step 1e-3 in float32, a
+    bound of 2e-2 relative L2: the forward rounds to float32, and a probe
+    may straddle a pixel edge, where the warp has a kink)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for name, fwd in (("warp_wide_backward", warp_cuda.grid_sample_wide),
+                      ("warp_narrow_backward", warp_cuda.grid_sample_narrow)):
+        C = 8 if name == "warp_wide_backward" else 3
+        image = torch.randn((2, 6, 7, C), generator=gen, device="cuda",
+                            dtype=torch.float64)
+        grid = torch.rand((4, 5, 3, 2), generator=gen, device="cuda",
+                          dtype=torch.float64) * 2.2 - 1.1
+        ok = torch.autograd.gradcheck(
+            lambda i, g: warp_cuda.grid_sample_plain(i, g),
+            (image.requires_grad_(), grid.requires_grad_()))
+        out[name] = {"plain_float64_gradcheck": ok,
+                     "kernel_float32": kernel_fd(
+                         fwd, (image.detach().float(), grid.detach().float()))}
+    pred = torch.randn((2, 3, 6, 5), generator=gen, device="cuda",
+                       dtype=torch.float64)
+    jmap = torch.randn((2, 3, 4, 6, 5), generator=gen, device="cuda",
+                       dtype=torch.float64)
+    ok = torch.autograd.gradcheck(
+        lambda p, j: kpx.kp_expectation_plain(p, j, 0.1),
+        (pred.requires_grad_(), jmap.requires_grad_()))
+    out["kp_expectation_backward"] = {
+        "plain_float64_gradcheck": ok,
+        "kernel_float32": kernel_fd(
+            lambda p, j: torch.cat([t.flatten(1) for t in
+                                    kpx.kp_expectation(p, j, 1.0)], 1),
+            (pred.detach().float(), jmap.detach().float()))}
+    for name, r in out.items():
+        if not r["plain_float64_gradcheck"] or \
+                r["kernel_float32"]["rel_l2"] > 2e-2:
+            raise AssertionError(f"{name}: finite differences {r}")
+    return out
+
+
+def kernel_fd(fwd, inputs: tuple, step: float = 1e-3,
+              probes: int = 24) -> dict:
+    """The kernel's gradient of sum(v * fwd(inputs)) for a random v against
+    central differences of that sum along ``probes`` random coordinates
+    of each input, in float32 on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    args = [t.clone().requires_grad_() for t in inputs]
+    out = fwd(*args)
+    v = torch.randn(out.shape, generator=gen, device="cuda")
+    grads = torch.autograd.grad((out.float() * v).sum(), args)
+    got, want = [], []
+    with torch.no_grad():
+        for i, t in enumerate(inputs):
+            for j in torch.randint(t.numel(), (probes,), generator=gen,
+                                   device="cuda").tolist():
+                plus, minus = t.clone(), t.clone()
+                plus.view(-1)[j] += step
+                minus.view(-1)[j] -= step
+                f, m = list(inputs), list(inputs)
+                f[i], m[i] = plus, minus
+                d = ((fwd(*f).float() * v).sum()
+                     - (fwd(*m).float() * v).sum()) / (2 * step)
+                got.append(grads[i].reshape(-1)[j].item())
+                want.append(d.item())
+    got, want = torch.tensor(got), torch.tensor(want)
+    return {"probes": len(got),
+            "rel_l2": ((got - want).norm() / want.norm()).item()}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1632,8 +1860,15 @@ def _artifact_phase(pipe: EammPipeline, device: str) -> dict:
         front = fronts[0]
         art_pipe = front.server.pipeline
         try:
+            lstm = [t for k, t in art_pipe.artifact.weights.items()
+                    if ".lstm." in k]
+            storages = {t.untyped_storage().data_ptr() for t in lstm}
             emit("artifact_load", seconds=loads, server=front.url,
-                 max_batch=front.server.max_batch)
+                 max_batch=front.server.max_batch,
+                 lstm_tensors=len(lstm), lstm_storages=len(storages))
+            if device == "cuda" and len(storages) != 1:
+                raise AssertionError("the loaded LSTM weights are not one "
+                                     f"flat buffer: {len(storages)} storages")
             programs = hold_programs(art_pipe.artifact, live)
             emit("artifact_programs", bitwise=sorted(programs),
                  launches=programs)
@@ -1661,13 +1896,21 @@ def _artifact_phase(pipe: EammPipeline, device: str) -> dict:
                       live.render_batch_yuv420(*zip(*batch)),
                       "artifact batch against live batch")
             walls = {"artifact": [], "live": []}
-            for _ in range(3):
-                for name in ("artifact", "live", "live", "artifact"):
-                    fn = (routes["coalesced"][0] if name == "artifact" else
-                          (lambda: live.render_batch_yuv420(*zip(*batch))))
-                    t0 = time.perf_counter()
-                    fn()
-                    walls[name].append(1e3 * (time.perf_counter() - t0))
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for _ in range(3):
+                    for name in ("artifact", "live", "live", "artifact"):
+                        fn = (routes["coalesced"][0] if name == "artifact"
+                              else (lambda: live.render_batch_yuv420(
+                                  *zip(*batch))))
+                        t0 = time.perf_counter()
+                        fn()
+                        walls[name].append(1e3 * (time.perf_counter() - t0))
+            compacted = [str(w.message) for w in caught
+                         if "contiguous chunk" in str(w.message)]
+            if compacted:
+                raise AssertionError("cuDNN compacted LSTM weights during "
+                                     f"the batch calls: {compacted[:1]}")
             serving = artifact_http_round(front, art_pipe, encode_request,
                                           video)
         finally:
@@ -1734,6 +1977,444 @@ def artifact_http_round(front, art_pipe, encode_request, video) -> dict:
                                     "max": max(v)}
                                 for k, v in latency.items()},
             "peak_memory_allocated": peak}
+
+
+# ------------------------------------------------------- phase 8: training
+
+# configs/train_part1.yaml and configs/train_part1_fine_tune.yaml's
+# train_params (the card's machine may lack PyYAML; tests hold these to
+# the files); the fine-tune's GAN weights are this phase's override
+TRAIN_PARAMS = {
+    "train_part1": {
+        "jaco_net": "cnn", "ldmark": "fake", "generator": "not",
+        "num_epochs": 300, "num_repeats": 1, "epoch_milestones": [60, 90],
+        "lr_generator": 2.0e-4, "lr_discriminator": 2.0e-4,
+        "lr_kp_detector": 2.0e-4, "lr_audio_feature": 2.0e-4,
+        "batch_size": 8, "scales": [1, 0.5, 0.25, 0.125],
+        "checkpoint_freq": 1, "log_every": 10, "steps_per_dispatch": 1,
+        "transform_params": {"sigma_affine": 0.05, "sigma_tps": 0.005,
+                             "points_tps": 5},
+        "loss_weights": {"generator_gan": 0, "discriminator_gan": 0,
+                         "feature_matching": [10, 10, 10, 10],
+                         "perceptual": [10, 10, 10, 10, 10],
+                         "equivariance_value": 0,
+                         "equivariance_jacobian": 0, "audio": 10}},
+    "train_part1_fine_tune": {
+        "jaco_net": "cnn", "ldmark": "fake", "generator": "audio",
+        "num_epochs": 300, "num_repeats": 1, "epoch_milestones": [60, 90],
+        "lr_generator": 2.0e-4, "lr_discriminator": 2.0e-4,
+        "lr_kp_detector": 2.0e-4, "lr_audio_feature": 2.0e-4,
+        "batch_size": 6, "scales": [1, 0.5, 0.25, 0.125],
+        "checkpoint_freq": 1, "log_every": 10, "steps_per_dispatch": 1,
+        "transform_params": {"sigma_affine": 0.05, "sigma_tps": 0.005,
+                             "points_tps": 5},
+        "loss_weights": {"generator_gan": 0, "discriminator_gan": 0,
+                         "feature_matching": [10, 10, 10, 10],
+                         "perceptual": [0.1, 0.1, 0.1, 0.1, 0.1],
+                         "equivariance_value": 0,
+                         "equivariance_jacobian": 0, "audio": 10}},
+}
+GAN_ON = {"generator_gan": 1, "discriminator_gan": 1}
+TRAIN_STEPS = 4                 # per mode at full width; the first warms up
+TRAIN_CLIPS = 4                 # synthetic LRW clips of 30 frames
+MODE_KERNELS = {"train_part1": ("kp_expectation", "kp_expectation_backward"),
+                "train_part1_fine_tune": TRAIN_KERNELS}
+# the CPU-against-card step: losses rtol, gradient relative L2 per leaf,
+# BatchNorm statistics (the CPU tests' bounds)
+STEP_TOL = {"loss_rtol": 1e-4, "grad_rel_l2": 1e-3, "stats": 1e-5}
+
+
+def write_lrw_tree(root: str, clips: int = TRAIN_CLIPS, frames: int = 30,
+                   seed: int = 11) -> None:
+    """A seeded LRW-layout tree: per clip a ``frames.eammpack`` of 256x256
+    frames (no PNG codec needed), MFCC windows and a pose track."""
+    from eamm_tpu_torch.data.packed import write_pack
+    rng = np.random.RandomState(seed)
+    for c in range(clips):
+        clip = f"W/c{c}"
+        img = os.path.join(root, "Image", "train_fo", clip)
+        mfcc = os.path.join(root, "MFCC", "train", clip)
+        pose = os.path.join(root, "pose", "train_fo", "W")
+        for d in (img, mfcc, pose):
+            os.makedirs(d, exist_ok=True)
+        write_pack(os.path.join(img, "frames.eammpack"), list(range(frames)),
+                   rng.randint(0, 256, (frames, 256, 256, 3), np.uint8))
+        for i in range(frames):
+            np.save(os.path.join(mfcc, f"{i}.npy"), rng.randn(28, 13))
+        np.save(os.path.join(pose, f"c{c}.npy"), rng.randn(frames, 7))
+
+
+def train_config(mode: str, root: str, model_config: dict, **overrides):
+    """The mode's config over ``model_config``'s widths and the tree."""
+    tp = json.loads(json.dumps(TRAIN_PARAMS[mode]))
+    tp.update(overrides)
+    if mode == "train_part1_fine_tune":
+        tp["loss_weights"].update(GAN_ON)
+    return {**json.loads(json.dumps(model_config)), "train_params": tp,
+            "dataset_params": {"name": "LRW", "root_dir": root,
+                               "frame_shape": [256, 256, 3],
+                               "augmentation_params": {}}}
+
+
+def model_tensors(models: dict) -> dict:
+    return {name: {k: v.detach().clone() for k, v in m.state_dict().items()}
+            for name, m in models.items()}
+
+
+def train_entry_point(mode: str, root: str, work: str,
+                      device: str = "cuda") -> dict:
+    """``eamm-torch-run``'s ``main`` at FULL_CONFIG widths and the YAML's
+    batch: TRAIN_STEPS steps with every launch count zeroed just before
+    and read just after, each step's wall seconds, peak memory; every
+    loss finite, the trained models changed, the frozen ones (weights and
+    BatchNorm statistics) bit for bit as drawn; a checkpoint, then one
+    more step resumed from it with ``--checkpoint latest``."""
+    from eamm_tpu_torch.cli.run import main as run_main
+    from eamm_tpu_torch.train import steps as S
+    from eamm_tpu_torch.train.logging import read_scalars
+    from eamm_tpu_torch.train.loop import build_models
+    cfg = train_config(mode, root, FULL_CONFIG, num_repeats=8,
+                       log_every=1)
+    path = os.path.join(work, f"{mode}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    log = os.path.join(work, f"log_{mode}")
+    walls: list = []
+    profiled: dict = {}
+    inner = S.make_part1_step
+
+    def timed_step(tp):
+        step = inner(tp)
+
+        def run(state, batch):
+            if "on" in profiled:
+                return profiled_step(step, state, batch, profiled)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    argv = ["--config", path, "--mode", mode, "--log_dir", log,
+            *(["--cpu"] if device == "cpu" else [])]
+    S.make_part1_step = timed_step
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            state, counts = drive(mode, MODE_KERNELS[mode], lambda: run_main(
+                argv + ["--max_steps", str(TRAIN_STEPS)]),
+                info={"steps": TRAIN_STEPS})
+        peak = torch.cuda.max_memory_allocated()
+        drawn = model_tensors(build_models(
+            cfg, mode, mode == "train_part1_fine_tune", 0, device))
+        after = model_tensors(state.models)
+        profiled["on"] = True
+        resumed = run_main(argv + ["--max_steps", "1", "--checkpoint",
+                                   "latest"])
+    finally:
+        S.make_part1_step = inner
+    compacted = [str(w.message) for w in caught
+                 if "contiguous chunk" in str(w.message)]
+    if compacted:
+        raise AssertionError(f"{mode}: cuDNN compacted LSTM weights: "
+                             f"{compacted[:1]}")
+    changed = {name: any(not torch.equal(v, after[name][k])
+                         for k, v in tensors.items())
+               for name, tensors in drawn.items()}
+    for name, moved in changed.items():
+        if moved != (name in state.trainable or name == "discriminator"):
+            raise AssertionError(f"{mode}: {name} changed={moved}")
+    (run,) = os.listdir(log)
+    scalars = read_scalars(os.path.join(log, run, "scalars.jsonl"))
+    losses = {tag: [float(v) for v in vals]
+              for tag, (_, vals) in scalars.items()}
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"{mode}: a loss is not finite: {losses}")
+    if state.step != TRAIN_STEPS or resumed.step != TRAIN_STEPS + 1:
+        raise AssertionError(f"{mode}: steps {state.step}, resumed "
+                             f"{resumed.step}")
+    result = {"mode": mode, "batch": cfg["train_params"]["batch_size"],
+              "frames": 16, "steps": TRAIN_STEPS,
+              "step_seconds": walls[:TRAIN_STEPS],
+              "step_seconds_median": float(np.median(walls[1:TRAIN_STEPS])),
+              "resumed_step_profile": profiled.get("summary"),
+              "peak_memory_allocated": peak, "launches": counts,
+              "launches_per_step": {k: v / TRAIN_STEPS
+                                    for k, v in counts.items()},
+              "losses": losses, "changed": changed,
+              "resumed_at": resumed.step, "card": card_line()}
+    emit("train_entry_point", **result)
+    return result
+
+
+# planted faults: one backward's output scaled on the card, each a wrong
+# backward, and whether the CPU-against-card step must refuse it (a 10%
+# mis-scale must be refused; the 1% one is read for the comparison's
+# reach, which the float32 floor of its bounds limits)
+FAULTS = {"K1b_grad_grid_x1.01": ("eamm_warp_wide_backward", 1.01, False),
+          "K1b_grad_grid_x1.1": ("eamm_warp_wide_backward", 1.1, True),
+          "K2b_grad_grid_x1.1": ("eamm_warp_narrow_backward", 1.1, True),
+          "K3b_grad_jmap_x1.1": ("kp_expectation_backward", 1.1, True)}
+
+
+@contextlib.contextmanager
+def planted_fault(entry: str, scale: float):
+    """Scale K1b's or K2b's grid gradient (``entry`` their C entry point)
+    or K3b's Jacobian-map gradient by ``scale`` while the block runs."""
+    if entry == "kp_expectation_backward":
+        module, name = kpx, "kp_expectation_backward_op"
+
+        def faulty(*args):
+            grad_pred, grad_jmap = inner(*args)
+            return grad_pred, grad_jmap * scale
+    else:
+        module, name = warp_cuda, "_launch_backward"
+
+        def faulty(which, *args):
+            grad_image, grad_grid = inner(which, *args)
+            return grad_image, (grad_grid * scale if which == entry
+                                else grad_grid)
+    inner = getattr(module, name)
+    setattr(module, name, faulty)
+    try:
+        yield
+    finally:
+        setattr(module, name, inner)
+
+
+def step_gradients(cfg: dict, batch: dict, seed: int, where: str,
+                   dtype: torch.dtype) -> dict:
+    """One ``train_part1_fine_tune`` gradient and its discriminator's on
+    ``where`` in ``dtype``: the metrics, each trained leaf's gradient and
+    the trained models' BatchNorm statistics, in float64 on the CPU."""
+    from eamm_tpu_torch.train import steps as S
+    from eamm_tpu_torch.train.loop import build_models
+    from eamm_tpu_torch.train.optim import make_optimizer
+    tp = cfg["train_params"]
+    models = build_models(cfg, "train_part1_fine_tune", True, seed, where)
+    # the Jacobian heads start at zero weights (an identity Jacobian, a
+    # Jacobian loss of rounding noise): give them the same small random
+    # weights on every side
+    noise = np.random.RandomState(seed + 1)
+    with torch.no_grad():
+        for name in ("kp_detector", "kp_detector_a"):
+            w = models[name].jacobian.weight
+            w.copy_(torch.from_numpy(0.005 * noise.randn(
+                *w.shape).astype(np.float32)))
+    for m in models.values():
+        m.to(dtype)
+    state = S.init_part1_state(models, make_optimizer, True, make_optimizer)
+    b = S.to_device(batch, where)
+    metrics, gen_out = S.part1_grads(state, tp, b)
+    metrics.update(S.discriminator_grads(state, tp, b, gen_out))
+    return {
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "grads": {f"{n}.{k}": p.grad.double().cpu()
+                  for n in (*state.trainable, "discriminator")
+                  for k, p in models[n].named_parameters()},
+        "stats": {f"{n}.{k}": v.double().cpu()
+                  for n in state.trainable
+                  for k, v in models[n].state_dict().items()
+                  if k.endswith(("running_mean", "running_var"))}}
+
+
+def profiled_step(step, state, batch, out: dict):
+    """Take one training step under ``torch.profiler``; put into ``out``
+    its wall seconds, the device time of its kernels and copies and its
+    share of the wall, each of the path's kernels' time, and the kernels
+    that took most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def self_ms(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0.0)) / 1e3
+
+    # device work only: a user annotation (the optimizer's step) spans
+    # kernels that are counted on their own
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and self_ms(e) > 0
+               and not getattr(e, "is_user_annotation", False)]
+    device = sum(self_ms(e) for e in kernels)
+    ours = {name: {"ms": sum(self_ms(e) for e in kernels if sym in e.key),
+                   "calls": sum(e.count for e in kernels if sym in e.key)}
+            for name, sym in KERNEL_SYMBOLS.items()}
+    top = sorted(kernels, key=self_ms, reverse=True)[:12]
+    out["summary"] = {
+        "wall_s": wall, "device_ms": device,
+        "busy_share": device / (1e3 * wall),
+        "kernels": ours,
+        "kernels_ms": sum(v["ms"] for v in ours.values()),
+        "kernels_share": (sum(v["ms"] for v in ours.values()) / device
+                          if device else None),
+        "top": [{"name": e.key[:100], "calls": e.count, "ms": self_ms(e)}
+                for e in top]}
+    return result
+
+
+def cpu_vs_card_step(seed: int = 0, device: str = "cuda",
+                     batch_size: int = 2, faults: dict = FAULTS) -> dict:
+    """One ``train_part1_fine_tune`` gradient (perceptual and GAN on, then
+    the discriminator's) at TINY_CONFIG widths from the same seeded
+    weights and batch: on the CPU in float64 (the plain versions: the
+    reference), on the CPU in float32, and on the card in float32 (the
+    kernels; TF32 off).  The card's losses and BatchNorm statistics are
+    held to the reference within STEP_TOL, and each gradient leaf within
+    STEP_TOL's relative L2 or, where float32 itself cannot reach it, three
+    times the CPU float32 step's own error on that leaf.  Float32 cannot
+    reach 1e-3 on most leaves: the mimic heatmap term's gradient is 100 *
+    weight / N * sign(difference) per pixel, and where both heatmaps are
+    ~0 that sign is rounding noise, so float32 and float64 flip different
+    pixels, and a BatchNorm parameter's gradient is a sum that cancels
+    (the CPU's float32 step is 0.3-1.2% off float64 in median on the
+    trained models, the discriminator's 1e-5); the flips are random, hence
+    the margin.  As a control, the card's step is taken again with each of
+    ``faults`` planted, and the comparison must refuse those marked so."""
+    cfg = train_config("train_part1_fine_tune", "", TINY_CONFIG,
+                       batch_size=batch_size, scales=[0.25])
+    cfg["model_params"]["discriminator_params"]["scales"] = [0.25]
+    rng = np.random.RandomState(seed)
+    B = batch_size
+    batch = {"example_image": rng.rand(B, 256, 256, 3).astype(np.float32),
+             "driving": rng.rand(B, 5, 256, 256, 3).astype(np.float32),
+             "driving_audio": rng.randn(B, 5, 28, 12).astype(np.float32),
+             "driving_pose": rng.randn(B, 5, 6).astype(np.float32)}
+    ref = step_gradients(cfg, batch, seed, "cpu", torch.float64)
+    cpu32 = step_gradients(cfg, batch, seed, "cpu", torch.float32)
+    totals = {}
+    for k, r in ref["grads"].items():
+        model = k.split(".")[0]
+        totals[model] = totals.get(model, 0.0) + float((r ** 2).sum())
+
+    def grad_errors(side: dict) -> dict:
+        """Per leaf |diff| / |reference gradient|, a zero gradient (a conv
+        bias before a training-mode BatchNorm) measured against 1e-3 of
+        its model's gradient norm."""
+        err = {}
+        for k, r in ref["grads"].items():
+            floor = max(float(r.norm()), STEP_TOL["grad_rel_l2"]
+                        * totals[k.split(".")[0]] ** 0.5)
+            err[k] = float((side["grads"][k] - r).norm()) / floor
+        return err
+
+    cpu32_err = grad_errors(cpu32)
+    bound = {k: max(STEP_TOL["grad_rel_l2"], 3 * v)
+             for k, v in cpu32_err.items()}
+
+    def compare(side: dict) -> dict:
+        """The side's worst readings, each against its bound (> 1 fails)."""
+        err = grad_errors(side)
+        over = {k: err[k] / bound[k] for k in err}
+        worst = max(over, key=over.get)
+        loss = max(abs(side["metrics"][k] - v) / abs(v)
+                   for k, v in ref["metrics"].items())
+        stats = max(float(((side["stats"][k] - r).abs()
+                           / (1 + r.abs())).max())
+                    for k, r in ref["stats"].items())
+        return {"err": err, "loss": loss, "stats": stats,
+                "grad_worst_leaf": worst, "grad_worst_over": over[worst],
+                "leaves_over": sum(v > 1 for v in over.values()),
+                "refused": (loss > STEP_TOL["loss_rtol"] or over[worst] > 1
+                            or stats > STEP_TOL["stats"])}
+
+    card = step_gradients(cfg, batch, seed, device, torch.float32)
+    clean = compare(card)
+    card_err = clean.pop("err")
+    controls = {}
+    for name, (entry, scale, must_refuse) in faults.items():
+        with planted_fault(entry, scale):
+            reading = compare(step_gradients(cfg, batch, seed, device,
+                                             torch.float32))
+        del reading["err"]
+        controls[name] = {**reading, "must_refuse": must_refuse}
+    worst_leaf = clean["grad_worst_leaf"]
+    result = {"loss": clean["loss"], "stats": clean["stats"],
+              "grad_worst_leaf": worst_leaf,
+              "grad_worst_err": card_err[worst_leaf],
+              "grad_worst_bound": bound[worst_leaf],
+              "grad_worst_over": clean["grad_worst_over"],
+              "grad_leaves": len(card_err),
+              "grad_leaves_within_1e-3": sum(
+                  v <= STEP_TOL["grad_rel_l2"] for v in card_err.values()),
+              "grad_leaves_float32_floor": sum(
+                  b > STEP_TOL["grad_rel_l2"] for b in bound.values()),
+              "grad_err_median": float(np.median(list(card_err.values()))),
+              "grad_err_median_by_model": {
+                  model: float(np.median([v for k, v in card_err.items()
+                                          if k.split(".")[0] == model]))
+                  for model in totals},
+              "cpu_float32_grad_err_median_by_model": {
+                  model: float(np.median([v for k, v in cpu32_err.items()
+                                          if k.split(".")[0] == model]))
+                  for model in totals},
+              "cpu_float32_grad_err_max": max(cpu32_err.values()),
+              "controls": controls}
+    emit("train_cpu_vs_card", losses=ref["metrics"], bounds=STEP_TOL,
+         **result)
+    missed = [name for name, c in controls.items()
+              if c["must_refuse"] and not c["refused"]]
+    if clean["refused"] or missed:
+        raise AssertionError(f"training step: card against CPU {result}; "
+                             f"planted faults not refused: {missed}")
+    return result
+
+
+def bf16_step(root: str, work: str, device: str = "cuda") -> dict:
+    """One fine-tune step at FULL_CONFIG in bfloat16 compute
+    (``--compute_dtype bfloat16``): the losses finite."""
+    from eamm_tpu_torch.cli.run import main as run_main
+    from eamm_tpu_torch.train.logging import read_scalars
+    cfg = train_config("train_part1_fine_tune", root, FULL_CONFIG,
+                       num_repeats=8, log_every=1)
+    path = os.path.join(work, "bf16.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    log = os.path.join(work, "log_bf16")
+    t0 = time.perf_counter()
+    run_main(["--config", path, "--mode", "train_part1_fine_tune",
+              "--log_dir", log, "--max_steps", "1",
+              "--compute_dtype", "bfloat16",
+              *(["--cpu"] if device == "cpu" else [])])
+    (run,) = os.listdir(log)
+    losses = {tag: float(v[0]) for tag, (_, v) in read_scalars(
+        os.path.join(log, run, "scalars.jsonl")).items()}
+    if not all(np.isfinite(list(losses.values()))):
+        raise AssertionError(f"bfloat16 step: {losses}")
+    result = {"losses": losses, "wall_seconds": time.perf_counter() - t0}
+    emit("train_bf16_step", **result)
+    return result
+
+
+def training_phase() -> dict:
+    """Phase 8: the backward kernels against their plain versions and by
+    finite differences, one TINY step on CPU and card, then both modes at
+    full width through the entry point and one bfloat16 step."""
+    worst = grad_parity(grad_cases())
+    emit("train_finite_differences", **finite_differences())
+    cpu_vs_card_step()
+    return {"worst": worst, **training_runs("cuda")}
+
+
+def training_runs(device: str) -> dict:
+    """Both modes through the entry point on a synthetic tree, then the
+    bfloat16 step."""
+    with tempfile.TemporaryDirectory() as work:
+        root = os.path.join(work, "lrw")
+        write_lrw_tree(root)
+        runs = {mode: train_entry_point(mode, root, work, device)
+                for mode in TRAIN_PARAMS}
+        bf16_step(root, work, device)
+    return {"runs": runs}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1866,6 +2547,67 @@ def timings(captured: dict) -> dict:
     return {**out, **kp_timings(gen)}
 
 
+def backward_timings() -> dict:
+    """The backward kernels at the fine-tune step's shapes, float32 (B 6,
+    4 supervised frames, 96 keypoint rows), with the gradients the
+    training path asks for (K1b both, K2b the grid's): device ms by CUDA
+    graph replay in turns with the library call of the same gradient
+    (``aten.grid_sampler_2d_backward``; K3b has none), the plain version
+    eager, and the bound: bytes at 3.35 TB/s, each input read once, the
+    grid's gradient written once, the image gradient's float32 accumulator
+    zeroed, read and written once per element (the atomics'
+    read-modify-write; for a float32 image the accumulator is the
+    gradient), against operations at 67 TFLOP/s."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for name, Bi, group, C, need in (
+            ("warp_wide_backward", 24, 1, 256, (True, True)),
+            ("warp_narrow_backward", 24, 11, 3, (False, True))):
+        args = warp_grad_case(Bi, Bi * group, C, torch.float32, gen,
+                              need=need)
+        grad_out, image, grid = args[:3]
+        wrapper, plain = BACKWARD_KERNELS[name][:2]
+        # the library call takes one image per grid: each source repeated
+        # for the grids that read it (made once, outside the timing)
+        nchw = image.permute(0, 3, 1, 2).repeat_interleave(group, dim=0)
+        gout = grad_out.permute(0, 3, 1, 2)
+        library = (lambda: torch.ops.aten.grid_sampler_2d_backward(
+            gout, nchw, grid, 0, 0, False, list(need)))
+        times = in_turns({"ms": graphed(lambda: wrapper(*args)),
+                          "library_ms": graphed(library)})
+        grad_image, grad_grid = wrapper(*args)
+        n_bytes = nbytes(grad_out, grid, grad_grid)
+        if need[1]:
+            n_bytes += nbytes(image)             # read for the grid's sum
+        if need[0]:
+            # the float32 accumulator zeroed, then read and written once
+            # (the atomics); a float32 image's gradient is the accumulator
+            # itself, a bfloat16 one is a rounding pass that reads it and
+            # writes the gradient
+            n_bytes += 3 * 4 * image.numel()
+            if grad_image.dtype != torch.float32:
+                n_bytes += 4 * image.numel() + nbytes(grad_image)
+        ops = grad_out.numel() * 4 * (2 * need[0] + 2 * need[1])
+        out[name] = {"ms": times["ms"]["median"],
+                     "library_ms": times["library_ms"]["median"],
+                     "plain_ms": time_ms(lambda: plain(*args)),
+                     "bound": bound_ms(n_bytes, ops), "timing": times}
+    args = kp_grad_case(96, gen)
+    pred, jmap = args[:2]
+    wrapper, plain = BACKWARD_KERNELS["kp_expectation_backward"][:2]
+    times = in_turns({"ms": graphed(lambda: wrapper(*args))})
+    P = pred.numel()
+    out["kp_expectation_backward"] = {
+        "ms": times["ms"]["median"], "library_ms": None,
+        "plain_ms": time_ms(lambda: plain(*args)),
+        # read pred and jmap, the output gradients; write both gradients;
+        # ~30 operations a pixel (three passes' exp, the 4-term sum twice)
+        "bound": bound_ms(2 * nbytes(pred, jmap) + nbytes(*args[3:]),
+                          30 * P),
+        "timing": times}
+    return out
+
+
 def kp_bound(pred: torch.Tensor, jmap: torch.Tensor, heat: bool):
     """The keypoint expectation's bound: each input read once, 6 floats
     written per row (and the heatmap in pred's dtype); ~16 operations per
@@ -1961,7 +2703,8 @@ def main() -> int:
     entry = entry_points()
     serving = serving_phase(pipe)
     artifact_phase(pipe)
-    times = timings(captured)
+    training = training_phase()
+    times = {**timings(captured), **backward_timings()}
 
     # whose launches each row counts
     source_of = {name: ("emotional linear_3 frames 10 s", counts["frames"])
@@ -1969,6 +2712,11 @@ def main() -> int:
     source_of["kp_expectation"] = ("emotional map frames 4 s", counts["map"])
     for name in ("warp_shared", "kp_expectation_fused"):
         source_of[name] = ("entry points", entry)
+    fine_tune = training["runs"]["train_part1_fine_tune"]
+    for name in BACKWARD_KERNELS:
+        source_of[name] = (f"train_part1_fine_tune {TRAIN_STEPS} steps",
+                           fine_tune["launches"])
+    worst.update(training["worst"])
     by_path = {name: {(f"{r['path']} {r['clip_seconds']:g} s"
                        if "clip_seconds" in r else r["path"]):
                       r["launches"][name] for r in REQUESTS}
@@ -1980,12 +2728,15 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "path": path,
                      "launches": launches[name],
+                     "launches_per_train_step": {
+                         mode: run["launches_per_step"][name]
+                         for mode, run in training["runs"].items()},
                      "max_abs_err": worst[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1], "library_ms": t["library_ms"],
                      "launches_by_path": by_path[name],
                      "launches_by_serving_route": {
-                         route: counts[name]
+                         route: counts.get(name, 0)
                          for route, counts in serving.items()},
                      **{k: t[k] for k in ("timing", "plan") if k in t}})
     print(card_line(), flush=True)

@@ -5,15 +5,20 @@ reads a YAML file into that dict; the factories take the dict and read no
 files."""
 from __future__ import annotations
 
+import json
+
 from eamm_tpu_torch.models import (ATNet, EmotionK, EmotionMap, KPDetector,
                                    KPDetectorA, OcclusionAwareGenerator)
 
 
 def load_config(path: str) -> dict:
     """A YAML config file (the reference's schema, ``configs/*.yaml``) ->
-    its dict.  PyYAML is imported here, so the package imports without it."""
-    import yaml
+    its dict.  PyYAML is imported here, so the package imports without it;
+    a ``.json`` file (the same dict) needs no PyYAML."""
     with open(path) as f:
+        if path.endswith(".json"):
+            return json.load(f)
+        import yaml
         return yaml.safe_load(f)
 
 

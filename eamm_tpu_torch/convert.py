@@ -15,7 +15,10 @@ converters (``eamm_tpu/compat/torch_convert.py``):
   its columns are permuted back;
 - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
   (``num_batches_tracked`` 0);
-- LSTM w_ih/w_hh [in, 4H] -> weight_ih/weight_hh [4H, in].
+- LSTM w_ih/w_hh [in, 4H] -> weight_ih/weight_hh [4H, in];
+- the discriminator's spectral-norm kernel and ``u`` -> ``weight_orig``
+  and ``weight_u`` (the reference's ``nn.utils.spectral_norm`` names);
+  VGG19 ``conv<i>`` -> torchvision's ``features.<i>``.
 """
 from __future__ import annotations
 
@@ -210,15 +213,56 @@ def emotion_map_state_dict(variables: dict) -> dict:
     return b.sd
 
 
+def discriminator_state_dict(variables: dict) -> dict:
+    """MultiScaleDiscriminator: per scale ``disc_<s>`` -> ``discs.<s>``;
+    a spectral-norm conv's kernel -> ``weight_orig`` and its ``u``
+    (batch_stats) -> ``weight_u``; InstanceNorm ``in_scale`` / ``in_bias``
+    -> ``norm.weight`` / ``norm.bias``."""
+    b = _StateDict(variables)
+
+    def sn_conv(path: str, name: str) -> None:
+        stats = b.stats
+        for part in path.split("/"):
+            stats = stats.get(part, {}) if isinstance(stats, dict) else {}
+        b.conv(path, name)
+        if "u" in stats:
+            b.sd[f"{name}.weight_orig"] = b.sd.pop(f"{name}.weight")
+            b._put(f"{name}.weight_u", stats["u"])
+
+    for disc in b.params:
+        name = f"discs.{disc[len('disc_'):]}"
+        for i in range(b.count(disc, "down")):
+            sn_conv(f"{disc}/down{i}/conv", f"{name}.down_blocks.{i}.conv")
+            block = b.params[disc][f"down{i}"]
+            if "in_scale" in block:
+                b._put(f"{name}.down_blocks.{i}.norm.weight", block["in_scale"])
+                b._put(f"{name}.down_blocks.{i}.norm.bias", block["in_bias"])
+        sn_conv(f"{disc}/conv", f"{name}.conv")
+    return b.sd
+
+
+def vgg_state_dict(variables: dict) -> dict:
+    """Vgg19 ``conv<i>`` -> torchvision's ``features.<i>``."""
+    b = _StateDict(variables)
+    for name in b.params:
+        b.conv(name, f"features.{name[len('conv'):]}")
+    return b.sd
+
+
 def state_dicts_from_jax(variables: dict, emo_type: str = "linear_3") -> dict:
     """{'generator', 'kp_detector', 'kp_detector_a', 'audio_feature',
-    'emo_detector'} -> port ``state_dict``s; the emotion model is EmotionMap
-    for a 'map*' ``emo_type`` and EmotionK otherwise."""
+    ['emo_detector'], ['discriminator'], ['vgg']} -> port ``state_dict``s;
+    the emotion model is EmotionMap for a 'map*' ``emo_type`` and EmotionK
+    otherwise.  The linear maps above also carry a gradient tree (given as
+    ``params``) to the port's names."""
     emotion = (emotion_map_state_dict if emo_type.startswith("map")
                else emotion_k_state_dict)
-    return {"generator": generator_state_dict(variables["generator"]),
-            "kp_detector": kp_detector_state_dict(variables["kp_detector"]),
-            "kp_detector_a": kp_detector_a_state_dict(
-                variables["kp_detector_a"]),
-            "audio_feature": atnet_state_dict(variables["audio_feature"]),
-            "emo_detector": emotion(variables["emo_detector"])}
+    convert = {"generator": generator_state_dict,
+               "kp_detector": kp_detector_state_dict,
+               "kp_detector_a": kp_detector_a_state_dict,
+               "audio_feature": atnet_state_dict,
+               "emo_detector": emotion,
+               "discriminator": discriminator_state_dict,
+               "vgg": vgg_state_dict}
+    return {name: convert[name](v) for name, v in variables.items()
+            if name in convert}

@@ -2,8 +2,10 @@
 //
 // Replaces the TPU kernels
 //   kp_expectation       <- eamm_tpu/ops/kp_expectation.py: kp_expectation ->
-//                           _pallas_impl -> _kernel (forward only; training's
-//                           backward is a later port);
+//                           _pallas_impl -> _kernel (the forward);
+//   kp_expectation_backward (K3b) <- the same file's custom_vjp backward
+//                           (_bwd, the autodiff of _xla_impl; it has no
+//                           Pallas kernel), section below K3;
 //   kp_expectation_fused <- eamm_tpu/ops/kp_pallas.py: kp_expectation_fused
 //                           -> _kernel (float32 or bfloat16 inputs, and the
 //                           normalized heatmap on request).
@@ -131,6 +133,71 @@ __global__ void kp_expectation_kernel(
     accumulate(s, expf(__fdiv_rn(pr[p], temp) - m), p, h, w, jm, jmap_f);
   block_sums(s, partial);
   store_row(s, row, value, jac);
+}
+
+// ---------------------------------------------------------------- K3b
+//
+// The backward of kp_expectation, one block per (b, k) row like the
+// forward.  Given g_value [B,K,2] and g_jac [B,K,2,2] (contiguous):
+//   p         = softmax(pred / T), recomputed from pred (the forward saves
+//               only pred and jmap, as the custom_vjp does)
+//   s         = g_value . (gx, gy) + sum_f g_jac[f] * jmap[f]
+//   grad_pred = p * (s - sum p*s) / T
+//   grad_jmap[f] = p * g_jac[f]
+// with the coordinates generated here, as the forward does.  Three passes
+// over the row (max, the two sums, the outputs): it reads pred three times
+// and jmap twice, from L1/L2 after the first, and writes 5 floats a pixel,
+// so it is bound by its bytes, like the forward.
+__device__ __forceinline__ float coord(int i, int n) {
+  return 2.f * __fdiv_rn((float)i, (float)(n - 1)) - 1.f;
+}
+
+__global__ void kp_expectation_backward_kernel(
+    const float* __restrict__ pred, long long pred_b, long long pred_k,
+    const float* __restrict__ jmap, long long jmap_b, long long jmap_k,
+    long long jmap_f, const float* __restrict__ g_value,
+    const float* __restrict__ g_jac, float* __restrict__ grad_pred,
+    float* __restrict__ grad_jmap, int K, int h, int w, float temp) {
+  __shared__ float scratch[kWarps];
+  __shared__ float partial[kWarps][kSums];
+  const int row = blockIdx.x;
+  const int b = row / K, k = row % K;
+  const int P = h * w;
+  const float* pr = pred + b * pred_b + k * pred_k;
+  const float* jm = jmap + b * jmap_b + k * jmap_k;
+  const float gv0 = g_value[2 * row], gv1 = g_value[2 * row + 1];
+  float gj[4];
+#pragma unroll
+  for (int f = 0; f < 4; ++f) gj[f] = g_jac[4 * row + f];
+  auto s_of = [&](int p) {
+    const int y = p / w, x = p - y * w;
+    float v = gv0 * coord(x, w) + gv1 * coord(y, h);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) v = fmaf(gj[f], jm[f * jmap_f + p], v);
+    return v;
+  };
+
+  float m = -INFINITY;
+  for (int p = threadIdx.x; p < P; p += kThreads) m = fmaxf(m, __fdiv_rn(pr[p], temp));
+  m = block_max(m, scratch);
+
+  float sums[kSums] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // sum e, e*s
+  for (int p = threadIdx.x; p < P; p += kThreads) {
+    const float e = expf(__fdiv_rn(pr[p], temp) - m);
+    sums[0] += e;
+    sums[1] = fmaf(e, s_of(p), sums[1]);
+  }
+  block_sums(sums, partial);
+  const float inv = 1.f / sums[0];
+  const float mean_s = sums[1] * inv;
+  float* gp = grad_pred + (long long)row * P;
+  float* gjm = grad_jmap + (long long)row * 4 * P;
+  for (int p = threadIdx.x; p < P; p += kThreads) {
+    const float prob = expf(__fdiv_rn(pr[p], temp) - m) * inv;
+    gp[p] = __fdiv_rn(prob * (s_of(p) - mean_s), temp);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) gjm[f * P + p] = prob * gj[f];
+  }
 }
 
 // ---------------------------------------------------------------- K5
@@ -469,6 +536,25 @@ extern "C" int eamm_kp_expectation_fused_resident(int pdtype, int jdtype,
   FusedArgs a{};
   a.smem = smem;
   return by_dtype<ResidentFused>(pdtype, jdtype, a, resident);
+}
+
+// K3b: g_value [B,K,2] and g_jac [B,K,2,2] contiguous float32 -> grad_pred
+// [B,K,h,w] and grad_jmap [B,K,4,h,w], contiguous float32; pred and jmap as
+// the forward reads them.
+extern "C" int eamm_kp_expectation_backward(
+    const void* pred, long long pred_b, long long pred_k, const void* jmap,
+    long long jmap_b, long long jmap_k, long long jmap_f, const void* g_value,
+    const void* g_jac, void* grad_pred, void* grad_jmap, int B, int K, int h,
+    int w, float temp, void* stream) {
+  cudaGetLastError();  // clear any earlier error of this runtime
+  kp_expectation_backward_kernel<<<B * K, kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pred), pred_b, pred_k,
+      static_cast<const float*>(jmap), jmap_b, jmap_k, jmap_f,
+      static_cast<const float*>(g_value), static_cast<const float*>(g_jac),
+      static_cast<float*>(grad_pred), static_cast<float*>(grad_jmap), K, h, w,
+      temp);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* eamm_error_string(int code) {

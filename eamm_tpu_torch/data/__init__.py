@@ -1,4 +1,6 @@
-"""Host-side input preparation for the demo (numpy and scipy): face crop
-and alignment (``preprocess``, ``landmarks``), the emotion clip's
-augmentation (``augmentation``) and the AVI writers (``native``).  The
-training datasets and the PNG batch decoder are not ported."""
+"""Host-side input preparation (numpy and scipy): face crop and alignment
+for the demo (``preprocess``, ``landmarks``), augmentation
+(``augmentation``), the AVI writers (``native``), and part1 training's
+LRW dataset, repeater and loader (``datasets``) over PNG or packed frames
+(``packed``).  The part2 datasets and the native PNG batch decoder are not
+ported yet."""

@@ -286,6 +286,36 @@ def export_render_artifact(pipeline, path: str, batch: int = 1,
     return meta
 
 
+def flatten_lstm_weights(weights: dict) -> None:
+    """Make each LSTM's loaded weights (``<prefix>.weight_ih_l<i>`` ...)
+    views of one flat buffer in cuDNN's layout, in place, as
+    ``nn.LSTM.flatten_parameters()`` does for a live module: cuDNN then
+    reads them where they are, instead of compacting a copy at every call.
+    Nothing to do off CUDA."""
+    for key in [k for k in weights if k.endswith(".weight_ih_l0")]:
+        prefix = key[:-len(".weight_ih_l0")]
+        w_ih = weights[key]
+        if w_ih.device.type != "cuda" or \
+                not torch.backends.cudnn.is_acceptable(w_ih) or \
+                not torch._use_cudnn_rnn_flatten_weight():
+            continue
+        import torch.backends.cudnn.rnn as cudnn_rnn
+        layers = 0
+        while f"{prefix}.weight_ih_l{layers}" in weights:
+            layers += 1
+        bias = f"{prefix}.bias_ih_l0" in weights
+        names = ("weight_ih", "weight_hh") + (("bias_ih", "bias_hh")
+                                              if bias else ())
+        flat = [weights[f"{prefix}.{n}_l{i}"] for i in range(layers)
+                for n in names]
+        hidden = weights[f"{prefix}.weight_hh_l0"].shape[1]
+        with torch.no_grad():
+            torch._cudnn_rnn_flatten_weight(
+                flat, len(names), w_ih.shape[1],
+                cudnn_rnn.get_cudnn_mode("LSTM"), hidden, 0,
+                layers, True, False)
+
+
 class RenderArtifact:
     """A loaded render artifact: the frozen programs, their weights on the
     device they were exported on, and the host side that feeds them."""
@@ -317,6 +347,7 @@ class RenderArtifact:
                                  f"programs run there, not on {dev}")
             weights = torch.load(io.BytesIO(z.read("weights.pt")),
                                  map_location=exported_on, weights_only=True)
+            flatten_lstm_weights(weights)
             programs = {}
             for name in z.namelist():
                 if name.startswith("programs/"):

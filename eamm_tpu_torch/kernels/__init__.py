@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("warp", "kp_expectation")
+SOURCES = ("warp", "warp_backward", "kp_expectation")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -100,6 +100,19 @@ def library(name: str) -> ctypes.CDLL:
         lib.eamm_error_string.restype = ctypes.c_char_p
         _libraries[name] = lib
     return lib
+
+
+def entry(name: str, function: str, argtypes: list):
+    """The loaded library of ``csrc/<name>.cu`` and its C function
+    ``function``, given ``argtypes`` and an ``int`` result on its first
+    lookup in that library (ctypes keeps one function object per library
+    and name, so it is typed once)."""
+    lib = library(name)
+    fn = getattr(lib, function)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

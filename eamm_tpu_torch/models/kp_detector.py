@@ -13,7 +13,12 @@ literal conv's 8.37 ms (``chip_profile.py`` ``conv_forms``, both
 detectors' heads; the audio heads read 249 maps of 35 x 64 x 64 in
 float32, and the fold multiplies 3.6x the operations).
 
-Returns {'value': [B, K, 2], 'jacobian': [B, K, 2, 2]}.
+Returns {'value': [B, K, 2], 'jacobian': [B, K, 2, 2]}; in training also
+'heatmap' [B, K, h, w], the softmax of the logits that the part1 mimic
+loss reads (``heatmap_softmax``, plain torch, as in JAX).  The expectation
+kernel takes float32: bfloat16 logits and Jacobian maps are cast to
+float32 around it (its backward too), as the TPU kernel computes in
+float32.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 
 from eamm_tpu_torch.models.blocks import Hourglass
 from eamm_tpu_torch.ops.antialias import antialias_downsample
+from eamm_tpu_torch.ops.grid import heatmap_softmax
 from eamm_tpu_torch.ops.kp_expectation import kp_expectation
 from eamm_tpu_torch.ops.subpixel import conv_s2d_folded, fold_conv_kernel_s2d
 
@@ -59,15 +65,21 @@ def heads_conv(feature_map: torch.Tensor, kp: nn.Conv2d, jacobian: nn.Conv2d,
 
 
 def keypoint_heads(feature_map: torch.Tensor, kp: nn.Conv2d,
-                   jacobian: nn.Conv2d, temperature: float) -> dict:
+                   jacobian: nn.Conv2d, temperature: float,
+                   with_heatmap: bool = False) -> dict:
     """The two 7x7 VALID heads as one literal conv (``heads_conv``), then
-    the expectation kernel reads both slices of their output in place."""
+    the expectation kernel reads both slices of their output in place;
+    ``with_heatmap`` adds the softmax heatmap of the logits."""
     K = kp.out_channels
     y = heads_conv(feature_map, kp, jacobian)                  # [B, 5K, h, w]
     B, _, h, w = y.shape
-    value, jac = kp_expectation(y[:, :K], y[:, K:].view(B, K, 4, h, w),
+    y32 = y.to(torch.promote_types(y.dtype, torch.float32))
+    value, jac = kp_expectation(y32[:, :K], y32[:, K:].view(B, K, 4, h, w),
                                 temperature)
-    return {"value": value, "jacobian": jac}
+    out = {"value": value, "jacobian": jac}
+    if with_heatmap:
+        out["heatmap"] = heatmap_softmax(y[:, :K], temperature)
+    return out
 
 
 def reset_jacobian(jacobian: nn.Conv2d, num_kp: int) -> None:
@@ -94,7 +106,7 @@ class KPHead(nn.Module):
 
     def forward(self, feature_map: torch.Tensor) -> dict:
         return keypoint_heads(feature_map, self.kp, self.jacobian,
-                              self.temperature)
+                              self.temperature, with_heatmap=self.training)
 
 
 class KPDetector(KPHead):

@@ -19,6 +19,13 @@ kernel is an operator, ``torch.ops.eamm.kp_expectation`` and
 implementation launches the kernel or raises and counts the launch in the
 wrapper's ``launches`` attribute, and its fake implementation gives the
 outputs' shapes.
+
+``kp_expectation`` is differentiable, as the JAX ``custom_vjp`` is: the
+operator's autograd formula calls ``eamm::kp_expectation_backward``, whose
+CUDA implementation is the kernel K3b (``kp_expectation_backward``) and
+whose CPU implementation is the autodiff of the plain version
+(``kp_expectation_backward_plain``).  K5 has no backward: no training path
+calls it.
 """
 from __future__ import annotations
 
@@ -78,8 +85,9 @@ def kp_expectation_op(pred: torch.Tensor, jmap: torch.Tensor,
 @kp_expectation_op.register_fake
 def _kp_expectation_fake(pred, jmap, temperature):
     B, K = pred.shape[:2]
-    return (pred.new_empty((B, K, 2), dtype=torch.float32),
-            pred.new_empty((B, K, 2, 2), dtype=torch.float32))
+    dt = torch.promote_types(pred.dtype, torch.float32)  # float64 stays
+    return (pred.new_empty((B, K, 2), dtype=dt),
+            pred.new_empty((B, K, 2, 2), dtype=dt))
 
 
 @kp_expectation_op.register_kernel("cuda")
@@ -97,13 +105,12 @@ def _kp_expectation_cuda(pred, jmap, temperature):
                          "rows and h, w >= 2")
     value = torch.empty((B, K, 2), dtype=torch.float32, device=pred.device)
     jac = torch.empty((B, K, 2, 2), dtype=torch.float32, device=pred.device)
-    lib = kernels.library("kp_expectation")
-    fn = lib.eamm_kp_expectation
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                    ctypes.c_void_p] + [ctypes.c_longlong] * 3
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    lib, fn = kernels.entry(
+        "kp_expectation", "eamm_kp_expectation",
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+         ctypes.c_void_p] + [ctypes.c_longlong] * 3
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p])
     code = fn(pred.data_ptr(), pred.stride(0), pred.stride(1),
               jmap.data_ptr(), jmap.stride(0), jmap.stride(1), jmap.stride(2),
               value.data_ptr(), jac.data_ptr(), B, K, h, w, float(temperature),
@@ -111,6 +118,101 @@ def _kp_expectation_cuda(pred, jmap, temperature):
     kernels.check(lib, code, "kp_expectation")
     kp_expectation.launches += 1
     return value, jac
+
+
+def kp_expectation_backward_plain(pred: torch.Tensor, jmap: torch.Tensor,
+                                  temperature: float, g_value: torch.Tensor,
+                                  g_jac: torch.Tensor):
+    """The plain backward: the autodiff of ``kp_expectation_plain`` ->
+    (grad_pred, grad_jmap) for output gradients g_value [B,K,2] and g_jac
+    [B,K,2,2]."""
+    _, vjp = torch.func.vjp(
+        lambda p, j: kp_expectation_plain(p, j, temperature), pred, jmap)
+    return vjp((g_value, g_jac))
+
+
+def kp_expectation_backward(pred: torch.Tensor, jmap: torch.Tensor,
+                            temperature: float, g_value: torch.Tensor,
+                            g_jac: torch.Tensor):
+    """(grad_pred [B,K,h,w], grad_jmap [B,K,4,h,w]) of ``kp_expectation``
+    at (pred, jmap) for output gradients g_value [B,K,2] and g_jac
+    [B,K,2,2]: the kernel K3b on CUDA (float32), the plain version on the
+    CPU."""
+    _check(pred, jmap)
+    _cuda_check("kp_expectation_backward", pred)
+    return kp_expectation_backward_op(pred, jmap, float(temperature),
+                                      g_value, g_jac)
+
+
+@torch.library.custom_op("eamm::kp_expectation_backward", mutates_args=(),
+                         device_types="cpu")
+def kp_expectation_backward_op(pred: torch.Tensor, jmap: torch.Tensor,
+                               temperature: float, g_value: torch.Tensor,
+                               g_jac: torch.Tensor
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    return kp_expectation_backward_plain(pred, jmap, temperature, g_value,
+                                         g_jac)
+
+
+@kp_expectation_backward_op.register_fake
+def _kp_expectation_backward_fake(pred, jmap, temperature, g_value, g_jac):
+    return torch.empty_like(pred), torch.empty_like(jmap)
+
+
+@kp_expectation_backward_op.register_kernel("cuda")
+def _kp_expectation_backward_cuda(pred, jmap, temperature, g_value, g_jac):
+    for name, t in (("pred", pred), ("jmap", jmap), ("g_value", g_value),
+                    ("g_jac", g_jac)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"kp_expectation_backward: need float32, {name} "
+                            f"is {t.dtype}")
+    B, K, h, w = pred.shape
+    for name, t in (("pred", pred), ("jmap", jmap)):
+        if t.stride(-1) != 1 or t.stride(-2) != w:
+            raise ValueError(f"kp_expectation_backward: each {name} row of "
+                             f"h*w must be contiguous, strides {t.stride()}")
+    if B * K == 0 or h < 2 or w < 2:
+        raise ValueError(f"kp_expectation_backward: shape "
+                         f"{tuple(pred.shape)} needs rows and h, w >= 2")
+    g_value = g_value.reshape(B, K, 2).contiguous()
+    g_jac = g_jac.reshape(B, K, 2, 2).contiguous()
+    grad_pred = torch.empty((B, K, h, w), dtype=torch.float32,
+                            device=pred.device)
+    grad_jmap = torch.empty((B, K, 4, h, w), dtype=torch.float32,
+                            device=pred.device)
+    lib, fn = kernels.entry(
+        "kp_expectation", "eamm_kp_expectation_backward",
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+         ctypes.c_void_p] + [ctypes.c_longlong] * 3
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p])
+    code = fn(pred.data_ptr(), pred.stride(0), pred.stride(1),
+              jmap.data_ptr(), jmap.stride(0), jmap.stride(1), jmap.stride(2),
+              g_value.data_ptr(), g_jac.data_ptr(), grad_pred.data_ptr(),
+              grad_jmap.data_ptr(), B, K, h, w, float(temperature),
+              torch.cuda.current_stream(pred.device).cuda_stream)
+    kernels.check(lib, code, "kp_expectation_backward")
+    kp_expectation_backward.launches += 1
+    return grad_pred, grad_jmap
+
+
+def _kp_expectation_setup(ctx, inputs, output):
+    pred, jmap, temperature = inputs
+    ctx.save_for_backward(pred, jmap)
+    ctx.temperature = temperature
+
+
+def _kp_expectation_grad(ctx, g_value, g_jac):
+    pred, jmap = ctx.saved_tensors
+    grad_pred, grad_jmap = kp_expectation_backward_op(
+        pred, jmap, ctx.temperature, g_value, g_jac)
+    need_pred, need_jmap = ctx.needs_input_grad[:2]
+    return (grad_pred if need_pred else None,
+            grad_jmap if need_jmap else None, None)
+
+
+kp_expectation_op.register_autograd(_kp_expectation_grad,
+                                    setup_context=_kp_expectation_setup)
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -166,10 +268,9 @@ def _fused_resident(device: torch.device, pdtype: int, jdtype: int,
     dtypes and size, so that a launch (or a CUDA graph's capture of it)
     makes no other runtime call; the query also lets the kernel take that
     much shared memory."""
-    lib = kernels.library("kp_expectation")
-    fn = lib.eamm_kp_expectation_fused_resident
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
+    lib, fn = kernels.entry(
+        "kp_expectation", "eamm_kp_expectation_fused_resident",
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
         kernels.check(lib, fn(pdtype, jdtype, smem, ctypes.byref(out)),
@@ -256,14 +357,13 @@ def _kp_expectation_fused_cuda(prediction, jmap, temperature, want_heatmap):
     jac = torch.empty((B, K, 2, 2), dtype=torch.float32, device=dev)
     heat = (torch.empty((B, K, h, w), dtype=prediction.dtype, device=dev)
             if want_heatmap else prediction.new_empty(0))
-    lib = kernels.library("kp_expectation")
-    fn = lib.eamm_kp_expectation_fused
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 2
-                   + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 3
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    lib, fn = kernels.entry(
+        "kp_expectation", "eamm_kp_expectation_fused",
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 2
+        + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 3
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+        + [ctypes.c_float] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p])
     code = fn(prediction.data_ptr(), _DTYPES[prediction.dtype],
               prediction.stride(0), prediction.stride(1),
               jmap.data_ptr(), _DTYPES[jmap.dtype],
@@ -279,4 +379,5 @@ def _kp_expectation_fused_cuda(prediction, jmap, temperature, want_heatmap):
 
 
 kp_expectation.launches = 0
+kp_expectation_backward.launches = 0
 kp_expectation_fused.launches = 0

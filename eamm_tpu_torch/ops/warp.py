@@ -4,7 +4,8 @@ Counterpart of ``eamm_tpu/ops/warp.py``.  ``grid_sample`` is
 ``torch.nn.functional.grid_sample(mode='bilinear')`` written out as the
 four-corner gather, so that the same arithmetic serves as the plain version
 of the CUDA warps in ``warp_cuda.py``: coordinates, weights and the sum are
-taken in float32 and the result is rounded once to the image dtype.
+taken in float32 (float64 for float64 inputs, so that finite differences
+can check its autodiff) and the result is rounded once to the image dtype.
 
 Grid ``b`` samples image ``b // (B // Bi)``, where ``Bi`` is the image batch
 and ``B`` the grid batch: one source can serve many grids without being
@@ -49,7 +50,9 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor, *,
     group = check_shared_batch(image, grid)
     Bi, H, W, C = image.shape
     B, Ho, Wo, _ = grid.shape
-    g = grid.float()
+    acc = torch.promote_types(torch.promote_types(image.dtype, grid.dtype),
+                              torch.float32)      # float64 stays float64
+    g = grid.to(acc)
     x = _unnormalize(g[..., 0], W, align_corners)
     y = _unnormalize(g[..., 1], H, align_corners)
     if padding_mode == "border":
@@ -63,7 +66,7 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor, *,
     wy1 = y - y0
     wx0 = 1.0 - wx1
     wy0 = 1.0 - wy1
-    src = image.float().reshape(Bi, H * W, C)
+    src = image.to(acc).reshape(Bi, H * W, C)
     src_of = torch.arange(B, device=image.device) // group     # [B]
 
     def corner(cx, cy, w):

@@ -21,6 +21,15 @@ implementation counts its launches in the wrapper's ``launches``
 attribute, so the calls of an exported program count too.  ``store_only``
 is a yardstick, no warp: it writes zeros over a tensor's bytes, the card's
 write ceiling for a kernel that writes them.
+
+The wide and narrow warps are differentiable: each operator's autograd
+formula calls ``eamm::warp_wide_backward`` or ``eamm::warp_narrow_backward``
+for the gradients ``ctx.needs_input_grad`` asks for.  Their CUDA
+implementations are the kernels K1b and K2b (``csrc/warp_backward.cu``,
+counted in ``warp_wide_backward.launches`` and
+``warp_narrow_backward.launches``); their CPU implementation is the
+autodiff of the plain version (``grid_sample_backward_plain``).  The
+shared warp has no backward: no training path calls it.
 """
 from __future__ import annotations
 
@@ -65,20 +74,11 @@ def grid_sample_shared_plain(source: torch.Tensor, grids: torch.Tensor,
     return grid_sample_plain(source[None], grids, align_corners)
 
 
-def _entry(name: str):
-    """The warp library and its C function ``name``, typed once."""
-    lib = kernels.library("warp")
-    fn = _typed.get(name)
-    if fn is None:
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _typed[name] = fn
-    return lib, fn
-
-
-_typed: dict = {}
+# the C interfaces of csrc/warp.cu's warps and csrc/warp_backward.cu's
+# backward warps: pointers, then the dtypes and sizes, then the stream
+_WARP_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_BACKWARD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                  + [ctypes.c_void_p])
 
 
 def _launch(entry: str, image: torch.Tensor, grid: torch.Tensor,
@@ -99,7 +99,7 @@ def _launch(entry: str, image: torch.Tensor, grid: torch.Tensor,
         raise ValueError(f"{entry}: empty output {tuple(out.shape)}")
     if image.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError(f"{entry}: image and output need 16-byte alignment")
-    lib, fn = _entry(entry)
+    lib, fn = kernels.entry("warp", entry, _WARP_ARGS)
     code = fn(image.data_ptr(), g.data_ptr(), out.data_ptr(),
               _DTYPES[image.dtype], _DTYPES[g.dtype], B, Ho, Wo, group, H, W,
               C, int(align_corners),
@@ -169,6 +169,162 @@ warp_shared_op.register_fake(lambda source, grids, align_corners:
                              _warp_fake(source[None], grids))
 
 
+def grid_sample_backward_plain(grad_out: torch.Tensor, image: torch.Tensor,
+                               grid: torch.Tensor, align_corners: bool,
+                               need_image: bool = True,
+                               need_grid: bool = True):
+    """The plain backward of both warps: the autodiff of
+    ``grid_sample_plain`` -> (grad_image or an empty tensor, grad_grid or an
+    empty tensor), each in its input's dtype."""
+    _, vjp = torch.func.vjp(
+        lambda i, g: grid_sample_plain(i, g, align_corners), image, grid)
+    grad_image, grad_grid = vjp(grad_out.to(image.dtype))
+    return (grad_image if need_image else image.new_empty(0),
+            grad_grid if need_grid else grid.new_empty(0))
+
+
+def _launch_backward(entry: str, grad_out: torch.Tensor, image: torch.Tensor,
+                     grid: torch.Tensor, align_corners: bool, need_image: bool,
+                     need_grid: bool):
+    """Launch K1b or K2b for the gradients asked for; the image gradient
+    accumulates in float32 (the output itself for a float32 image)."""
+    group = check_shared_batch(image, grid)
+    if image.dtype not in _DTYPES or grid.dtype not in _DTYPES:
+        raise TypeError(f"{entry}: image {image.dtype}, grid {grid.dtype}; "
+                        "each must be float32 or bfloat16")
+    if not (need_image or need_grid):
+        raise ValueError(f"{entry}: no gradient asked for")
+    image = image.contiguous()
+    g = grid.contiguous()
+    gout = grad_out.to(image.dtype).contiguous()
+    if gout.shape != (*grid.shape[:3], image.shape[3]):
+        raise ValueError(f"{entry}: grad_out {tuple(grad_out.shape)} for "
+                         f"image {tuple(image.shape)} and grid "
+                         f"{tuple(grid.shape)}")
+    if image.data_ptr() % 16 or gout.data_ptr() % 16:
+        raise ValueError(f"{entry}: image and grad_out need 16-byte "
+                         "alignment")
+    Bi, H, W, C = image.shape
+    B, Ho, Wo, _ = grid.shape
+    grad_image = (torch.empty_like(image) if need_image
+                  else image.new_empty(0))
+    acc = (grad_image if image.dtype == torch.float32 else
+           torch.empty(image.shape, dtype=torch.float32, device=image.device)
+           ) if need_image else None
+    grad_grid = torch.empty_like(g) if need_grid else grid.new_empty(0)
+    lib, fn = kernels.entry("warp_backward", entry, _BACKWARD_ARGS)
+    code = fn(image.data_ptr(), g.data_ptr(), gout.data_ptr(),
+              acc.data_ptr() if need_image else None,
+              grad_image.data_ptr() if need_image else None,
+              grad_grid.data_ptr() if need_grid else None,
+              _DTYPES[image.dtype], _DTYPES[g.dtype], B, Ho, Wo, group, H, W,
+              C, int(align_corners),
+              torch.cuda.current_stream(image.device).cuda_stream)
+    kernels.check(lib, code, entry)
+    return grad_image, grad_grid
+
+
+def _backward_fake(grad_out, image, grid, align_corners, need_image,
+                   need_grid):
+    return (image.new_empty(image.shape if need_image else 0),
+            grid.new_empty(grid.shape if need_grid else 0))
+
+
+@torch.library.custom_op("eamm::warp_wide_backward", mutates_args=(),
+                         device_types="cpu")
+def warp_wide_backward_op(grad_out: torch.Tensor, image: torch.Tensor,
+                          grid: torch.Tensor, align_corners: bool,
+                          need_image: bool, need_grid: bool
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    return grid_sample_backward_plain(grad_out, image, grid, align_corners,
+                                      need_image, need_grid)
+
+
+@warp_wide_backward_op.register_kernel("cuda")
+def _warp_wide_backward_cuda(grad_out, image, grid, align_corners, need_image,
+                             need_grid):
+    out = _launch_backward("eamm_warp_wide_backward", grad_out, image, grid,
+                           align_corners, need_image, need_grid)
+    warp_wide_backward.launches += 1
+    return out
+
+
+@torch.library.custom_op("eamm::warp_narrow_backward", mutates_args=(),
+                         device_types="cpu")
+def warp_narrow_backward_op(grad_out: torch.Tensor, image: torch.Tensor,
+                            grid: torch.Tensor, align_corners: bool,
+                            need_image: bool, need_grid: bool
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    return grid_sample_backward_plain(grad_out, image, grid, align_corners,
+                                      need_image, need_grid)
+
+
+@warp_narrow_backward_op.register_kernel("cuda")
+def _warp_narrow_backward_cuda(grad_out, image, grid, align_corners,
+                               need_image, need_grid):
+    if need_image:
+        H, W, C = image.shape[1:]
+        if 4 * H * W * C > SMEM_LIMIT:
+            raise ValueError(f"warp_narrow_backward: a [{H},{W},{C}] source's "
+                             "float32 gradient does not fit in a block's "
+                             f"{SMEM_LIMIT} bytes of shared memory")
+    out = _launch_backward("eamm_warp_narrow_backward", grad_out, image, grid,
+                           align_corners, need_image, need_grid)
+    warp_narrow_backward.launches += 1
+    return out
+
+
+warp_wide_backward_op.register_fake(_backward_fake)
+warp_narrow_backward_op.register_fake(_backward_fake)
+
+
+def _warp_setup(ctx, inputs, output):
+    image, grid, align_corners = inputs
+    ctx.save_for_backward(image, grid)
+    ctx.align_corners = align_corners
+
+
+def _warp_grad(backward_op):
+    def grad(ctx, grad_out):
+        image, grid = ctx.saved_tensors
+        need_image, need_grid = ctx.needs_input_grad[:2]
+        if not (need_image or need_grid):
+            return None, None, None
+        grad_image, grad_grid = backward_op(grad_out, image, grid,
+                                            ctx.align_corners, need_image,
+                                            need_grid)
+        return (grad_image if need_image else None,
+                grad_grid if need_grid else None, None)
+    return grad
+
+
+warp_wide_op.register_autograd(_warp_grad(warp_wide_backward_op),
+                               setup_context=_warp_setup)
+warp_narrow_op.register_autograd(_warp_grad(warp_narrow_backward_op),
+                                 setup_context=_warp_setup)
+
+
+def warp_wide_backward(grad_out: torch.Tensor, image: torch.Tensor,
+                       grid: torch.Tensor, align_corners: bool = False,
+                       need_image: bool = True, need_grid: bool = True):
+    """(grad_image, grad_grid) of ``grid_sample_wide`` for ``grad_out``
+    [B,Ho,Wo,C], each an empty tensor when not asked for: the kernel K1b
+    on CUDA, the plain version on the CPU."""
+    _device_check("warp_wide_backward", image)
+    return warp_wide_backward_op(grad_out, image, grid, align_corners,
+                                 need_image, need_grid)
+
+
+def warp_narrow_backward(grad_out: torch.Tensor, image: torch.Tensor,
+                         grid: torch.Tensor, align_corners: bool = False,
+                         need_image: bool = True, need_grid: bool = True):
+    """(grad_image, grad_grid) of ``grid_sample_narrow``: the kernel K2b on
+    CUDA, the plain version on the CPU."""
+    _device_check("warp_narrow_backward", image)
+    return warp_narrow_backward_op(grad_out, image, grid, align_corners,
+                                   need_image, need_grid)
+
+
 def grid_sample_wide(image: torch.Tensor, grid: torch.Tensor,
                      align_corners: bool = False) -> torch.Tensor:
     """Warp for channel counts that are a multiple of 8 (the bottleneck's
@@ -222,11 +378,10 @@ def store_only(out: torch.Tensor) -> torch.Tensor:
             or out.data_ptr() % 16 or out.nbytes % 16:
         raise ValueError("store_only: need a contiguous CUDA tensor, 16-byte "
                          "aligned, of a multiple of 16 bytes")
-    lib = kernels.library("warp")
-    lib.eamm_store_only.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
-                                    ctypes.c_void_p]
-    lib.eamm_store_only.restype = ctypes.c_int
-    kernels.check(lib, lib.eamm_store_only(
+    lib, fn = kernels.entry("warp", "eamm_store_only",
+                            [ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_void_p])
+    kernels.check(lib, fn(
         out.data_ptr(), out.nbytes,
         torch.cuda.current_stream(out.device).cuda_stream), "eamm_store_only")
     return out
@@ -235,3 +390,5 @@ def store_only(out: torch.Tensor) -> torch.Tensor:
 grid_sample_wide.launches = 0
 grid_sample_narrow.launches = 0
 grid_sample_shared.launches = 0
+warp_wide_backward.launches = 0
+warp_narrow_backward.launches = 0

@@ -35,7 +35,19 @@ ENTRY_MODULES = ["eamm_tpu_torch.serve", "eamm_tpu_torch.serve_http",
                  "eamm_tpu_torch.data.landmarks",
                  "eamm_tpu_torch.data.preprocess",
                  "eamm_tpu_torch.ops.subpixel", "eamm_tpu_torch.infer.export",
-                 "eamm_tpu_torch.cli.export"]
+                 "eamm_tpu_torch.cli.export",
+                 # training (part1)
+                 "eamm_tpu_torch.cli.run", "eamm_tpu_torch.train.steps",
+                 "eamm_tpu_torch.train.loop", "eamm_tpu_torch.train.losses",
+                 "eamm_tpu_torch.train.optim",
+                 "eamm_tpu_torch.train.checkpoint",
+                 "eamm_tpu_torch.train.logging",
+                 "eamm_tpu_torch.train.tbevents",
+                 "eamm_tpu_torch.models.vgg",
+                 "eamm_tpu_torch.models.discriminator",
+                 "eamm_tpu_torch.ops.augment",
+                 "eamm_tpu_torch.data.datasets",
+                 "eamm_tpu_torch.data.packed"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -84,6 +96,18 @@ def test_chip_smoke_fails_alone(tmp_path):
 def test_chip_smoke_configs_are_the_repos():
     assert chip_smoke.TINY_CONFIG == TINY_CONFIG
     assert chip_smoke.FULL_CONFIG == bench.FULL_CONFIG
+
+
+def test_chip_smoke_train_params_are_the_yamls():
+    """Phase 8's training parameters are configs/train_part1*.yaml's (the
+    card's machine may lack PyYAML), and its model widths the YAMLs'."""
+    from eamm_tpu_torch.config import load_config
+    for mode, params in chip_smoke.TRAIN_PARAMS.items():
+        config = load_config(os.path.join(REPO_ROOT, "configs",
+                                          f"{mode}.yaml"))
+        assert params == config["train_params"], mode
+        assert chip_smoke.FULL_CONFIG["model_params"] == \
+            config["model_params"], mode
 
 
 def test_chip_smoke_cpu_vs_device_on_cpu(cpu_vs_cpu):
