@@ -150,8 +150,34 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    the peak device memory, every logged loss finite, the trained models
    changed and the frozen ones (weights and BatchNorm statistics) bit
    for bit as drawn, no cuDNN LSTM compaction warning, a checkpoint and
-   one more step resumed from it with ``--checkpoint latest``; and one
-   fine-tune step with ``--compute_dtype bfloat16``.
+   one more step resumed from it with ``--checkpoint latest``; at each
+   run's last checkpoint the visualizer's image (``read_png``: there,
+   not blank) and its launches (K1-K3 must launch; taken out of the
+   run's per-step counts); and one fine-tune step with
+   ``--compute_dtype bfloat16``.  Phase 3b's K3b cases include part2's
+   shapes: 256 images of 10 rows (the frozen detectors at the YAML's
+   16 x 16 batch) and of 4 rows (EmotionMap's ``map_4`` head).
+9. part2 and the evaluation modes (after phase 8): one ``train_part2``
+   gradient (``map_4``, ``smooth`` on) at TINY widths on the CPU in
+   float64, on the CPU in float32 on 1, 2, 4 and 8 threads and on the
+   card in float32, held as phase 8's step (each leaf's float32 error the
+   largest of the four CPU runs), K3b's Jacobian-map gradient x1.1 as
+   the control that must be refused; ``eamm-torch-run --mode
+   train_part2`` at FULL_CONFIG and configs/train_part2.yaml's batch of
+   16 x 16 frames on a seeded MEAD tree (4 identities, a neutral and an
+   emotional clip each, packed), from FOMM and audio checkpoints written
+   from seeded weights: ``linear_4`` with the host augmentation, with
+   the device augmentation (then one step resumed with ``--checkpoint
+   latest`` under ``torch.profiler``) and ``map_4``, PART2_STEPS steps
+   each with launch counts zeroed just before and read just after (K3
+   must launch, and K3b under ``map_4``), each step's wall seconds, peak
+   memory, every loss finite, emo_detector changed and the frozen models
+   (weights and BatchNorm statistics) bit for bit the checkpoints';
+   ``--mode reconstruction`` (with ``--emo_checkpoint``) and ``--mode
+   animate`` at FULL_CONFIG on a seeded Vox test split of 2 clips, on
+   the card (K1-K3 must launch) and on the CPU: the card's metrics
+   finite and within EVAL_TOL of the CPU's, the uint8 animations within
+   the render's per-frame bounds.
 6. kernel times at the main-path shapes: the kernel, its plain version,
    one PyTorch library call computing the same function where there is
    one, and the bound (the larger of bytes at 3.35 TB/s and operations at
@@ -178,12 +204,14 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    path asks for (K1b both, K2b the grid's), beside
    ``aten.grid_sampler_2d_backward`` for the warps; their bound counts
    the image gradient's float32 accumulator as zeroed, read and written
-   once per element.
+   once per element; K3b also at part2's ``map_4`` shape (256 images of
+   4 rows) with its plain version and bound (``timing.map_4``).
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line
 (with the path whose launches each row counts, the launches on every
-request by path, on every serving route and per training step of each
-mode; the backward rows count the fine-tune run), and last
+request by path, on every serving route, per training step of each
+mode, per part2 step of each run and per evaluation mode and visualizer
+call; the backward rows count the fine-tune run), and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -534,10 +562,11 @@ def warp_grad_case(Bi: int, B: int, C: int, dtype: torch.dtype,
     return (grad_out, image, grid, align, *need)
 
 
-def kp_grad_case(N: int, gen: torch.Generator, h: int = 58, w: int = 58):
+def kp_grad_case(N: int, gen: torch.Generator, h: int = 58, w: int = 58,
+                 K: int = 10):
     """(pred, jmap, temperature, g_value, g_jac) as the heads pass them
     (slices of one conv output), with random output gradients."""
-    pred, jmap, temperature = kp_case(N, gen, h, w)
+    pred, jmap, temperature = kp_case(N, gen, h, w, K=K)
     K = pred.shape[1]
     return (pred, jmap, temperature,
             torch.randn((N, K, 2), generator=gen, device="cuda"),
@@ -564,9 +593,13 @@ def grad_cases(B: int = 6, frames: int = 4, N: int = 96) -> list:
         cases.append(("warp_narrow_backward", dtype,
                       warp_grad_case(2, 6, 3, dtype, gen, hw=(13, 17),
                                      align=True)))
-    for rows, hw in ((N, (58, 58)), (B, (58, 58)), (3, (13, 17))):
+    # part2's shapes too: the frozen detectors' 256 images of 10 rows and
+    # EmotionMap's map_4 head, 4 rows an image (B 16 x T 16)
+    for rows, hw, K in ((N, (58, 58), 10), (B, (58, 58), 10),
+                        (3, (13, 17), 10), (PART2_ROWS, (58, 58), 10),
+                        (PART2_ROWS, (58, 58), 4)):
         cases.append(("kp_expectation_backward", torch.float32,
-                      kp_grad_case(rows, gen, *hw)))
+                      kp_grad_case(rows, gen, *hw, K=K)))
     return cases
 
 
@@ -2061,29 +2094,18 @@ def model_tensors(models: dict) -> dict:
             for name, m in models.items()}
 
 
-def train_entry_point(mode: str, root: str, work: str,
-                      device: str = "cuda") -> dict:
-    """``eamm-torch-run``'s ``main`` at FULL_CONFIG widths and the YAML's
-    batch: TRAIN_STEPS steps with every launch count zeroed just before
-    and read just after, each step's wall seconds, peak memory; every
-    loss finite, the trained models changed, the frozen ones (weights and
-    BatchNorm statistics) bit for bit as drawn; a checkpoint, then one
-    more step resumed from it with ``--checkpoint latest``."""
-    from eamm_tpu_torch.cli.run import main as run_main
+@contextlib.contextmanager
+def timed_steps(maker: str):
+    """While in use, the steps that ``train.steps.<maker>`` makes record
+    their wall seconds (host clock, ended by a synchronize) in ``walls``;
+    once ``profiled['on']`` is set they run under ``profiled_step``
+    instead.  Yields (walls, profiled)."""
     from eamm_tpu_torch.train import steps as S
-    from eamm_tpu_torch.train.logging import read_scalars
-    from eamm_tpu_torch.train.loop import build_models
-    cfg = train_config(mode, root, FULL_CONFIG, num_repeats=8,
-                       log_every=1)
-    path = os.path.join(work, f"{mode}.json")
-    with open(path, "w") as f:
-        json.dump(cfg, f)
-    log = os.path.join(work, f"log_{mode}")
+    inner = getattr(S, maker)
     walls: list = []
     profiled: dict = {}
-    inner = S.make_part1_step
 
-    def timed_step(tp):
+    def timed(tp):
         step = inner(tp)
 
         def run(state, batch):
@@ -2097,25 +2119,54 @@ def train_entry_point(mode: str, root: str, work: str,
             return out
         return run
 
+    setattr(S, maker, timed)
+    try:
+        yield walls, profiled
+    finally:
+        setattr(S, maker, inner)
+
+
+def train_entry_point(mode: str, root: str, work: str,
+                      device: str = "cuda") -> dict:
+    """``eamm-torch-run``'s ``main`` at FULL_CONFIG widths and the YAML's
+    batch: TRAIN_STEPS steps with every launch count zeroed just before
+    and read just after, each step's wall seconds, peak memory; every
+    loss finite, the trained models changed, the frozen ones (weights and
+    BatchNorm statistics) bit for bit as drawn; a checkpoint, then one
+    more step resumed from it with ``--checkpoint latest``."""
+    from eamm_tpu_torch.cli.run import main as run_main
+    from eamm_tpu_torch.train.logging import read_scalars
+    from eamm_tpu_torch.train.loop import build_models
+    cfg = train_config(mode, root, FULL_CONFIG, num_repeats=8,
+                       log_every=1)
+    path = os.path.join(work, f"{mode}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    log = os.path.join(work, f"log_{mode}")
     argv = ["--config", path, "--mode", mode, "--log_dir", log,
             *(["--cpu"] if device == "cpu" else [])]
-    S.make_part1_step = timed_step
+    images = CountedVisualizer()
     try:
-        torch.cuda.reset_peak_memory_stats()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            state, counts = drive(mode, MODE_KERNELS[mode], lambda: run_main(
-                argv + ["--max_steps", str(TRAIN_STEPS)]),
-                info={"steps": TRAIN_STEPS})
-        peak = torch.cuda.max_memory_allocated()
-        drawn = model_tensors(build_models(
-            cfg, mode, mode == "train_part1_fine_tune", 0, device))
-        after = model_tensors(state.models)
-        profiled["on"] = True
-        resumed = run_main(argv + ["--max_steps", "1", "--checkpoint",
-                                   "latest"])
+        with timed_steps("make_part1_step") as (walls, profiled):
+            torch.cuda.reset_peak_memory_stats()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                state, counts = drive(mode, MODE_KERNELS[mode],
+                                      lambda: run_main(argv + [
+                                          "--max_steps", str(TRAIN_STEPS)]),
+                                      info={"steps": TRAIN_STEPS})
+            peak = torch.cuda.max_memory_allocated()
+            drawn = model_tensors(build_models(
+                cfg, mode, mode == "train_part1_fine_tune", 0, device))
+            after = model_tensors(state.models)
+            profiled["on"] = True
+            resumed = run_main(argv + ["--max_steps", "1", "--checkpoint",
+                                       "latest"])
     finally:
-        S.make_part1_step = inner
+        images.close()
+    # the visualizer ran at the run's last checkpoint, inside the counts
+    viz = images.calls[0]
+    counts = {k: v - viz["launches"][k] for k, v in counts.items()}
     compacted = [str(w.message) for w in caught
                  if "contiguous chunk" in str(w.message)]
     if compacted:
@@ -2145,9 +2196,76 @@ def train_entry_point(mode: str, root: str, work: str,
               "launches_per_step": {k: v / TRAIN_STEPS
                                     for k, v in counts.items()},
               "losses": losses, "changed": changed,
-              "resumed_at": resumed.step, "card": card_line()}
+              "resumed_at": resumed.step, "visualizer": images.calls,
+              "card": card_line()}
     emit("train_entry_point", **result)
     return result
+
+
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit RGB PNG with unfiltered rows (what ``train/visualizer.py``
+    writes) -> [H, W, 3] uint8."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, shape = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+            if (depth, color) != (8, 2):
+                raise AssertionError(f"{path}: depth {depth} color {color}")
+            shape = (h, w)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    h, w = shape
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: filtered rows")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+class CountedVisualizer:
+    """Wrap the training loop's ``visualize_checkpoint`` while in use:
+    each call's launches (the counts' difference across it, the outer
+    run's counts left running) and its image, which must exist and not be
+    blank (a standard deviation of more than 10 counts); K1-K3 must
+    launch."""
+
+    def __init__(self):
+        from eamm_tpu_torch.train import loop
+        self.loop, self.inner = loop, loop.visualize_checkpoint
+        self.calls: list = []
+        loop.visualize_checkpoint = self
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        path = self.inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in launch_counts().items()}
+        image = read_png(path)
+        call = {"path": os.path.basename(path), "shape": list(image.shape),
+                "std": float(image.std()), "launches": launches,
+                "wall_seconds": time.perf_counter() - t0}
+        self.calls.append(call)
+        return path
+
+    def close(self):
+        self.loop.visualize_checkpoint = self.inner
+        for call in self.calls:
+            missing = [k for k in RENDER_KERNELS if call["launches"][k] <= 0]
+            if call["std"] <= 10 or missing:
+                raise AssertionError(f"visualizer: {call}; not launched: "
+                                     f"{missing}")
+        if not self.calls:
+            raise AssertionError("visualizer: no image written")
 
 
 # planted faults: one backward's output scaled on the card, each a wrong
@@ -2262,6 +2380,53 @@ def profiled_step(step, state, batch, out: dict):
     return result
 
 
+def step_comparison(ref: dict, cpu32):
+    """(compare, grad_errors, bound) for sides of one training gradient
+    (``step_gradients``' dicts) against ``ref``, the CPU's float64 side:
+    ``grad_errors(side)`` is each leaf's |diff| / |reference gradient| (a
+    zero gradient, a conv bias before a training-mode BatchNorm, measured
+    against 1e-3 of its model's gradient norm); ``bound`` per leaf the
+    larger of STEP_TOL's 1e-3 and three times the CPU float32 side's own
+    error (``cpu32`` a side, or a list of sides whose largest error a
+    leaf takes); ``compare(side)`` the side's worst readings against them
+    and whether they refuse it (a leaf over its bound, a loss past rtol
+    1e-4 or a statistic past 1e-5)."""
+    totals = {}
+    for k, r in ref["grads"].items():
+        model = k.split(".")[0]
+        totals[model] = totals.get(model, 0.0) + float((r ** 2).sum())
+
+    def grad_errors(side: dict) -> dict:
+        err = {}
+        for k, r in ref["grads"].items():
+            floor = max(float(r.norm()), STEP_TOL["grad_rel_l2"]
+                        * totals[k.split(".")[0]] ** 0.5)
+            err[k] = float((side["grads"][k] - r).norm()) / floor
+        return err
+
+    sides = cpu32 if isinstance(cpu32, list) else [cpu32]
+    errors = [grad_errors(side) for side in sides]
+    bound = {k: max(STEP_TOL["grad_rel_l2"], 3 * max(e[k] for e in errors))
+             for k in ref["grads"]}
+
+    def compare(side: dict) -> dict:
+        err = grad_errors(side)
+        over = {k: err[k] / bound[k] for k in err}
+        worst = max(over, key=over.get)
+        loss = max(abs(side["metrics"][k] - v) / abs(v)
+                   for k, v in ref["metrics"].items())
+        stats = max(float(((side["stats"][k] - r).abs()
+                           / (1 + r.abs())).max())
+                    for k, r in ref["stats"].items())
+        return {"err": err, "loss": loss, "stats": stats,
+                "grad_worst_leaf": worst, "grad_worst_over": over[worst],
+                "leaves_over": sum(v > 1 for v in over.values()),
+                "refused": (loss > STEP_TOL["loss_rtol"] or over[worst] > 1
+                            or stats > STEP_TOL["stats"])}
+
+    return compare, grad_errors, bound
+
+
 def cpu_vs_card_step(seed: int = 0, device: str = "cuda",
                      batch_size: int = 2, faults: dict = FAULTS) -> dict:
     """One ``train_part1_fine_tune`` gradient (perceptual and GAN on, then
@@ -2289,52 +2454,42 @@ def cpu_vs_card_step(seed: int = 0, device: str = "cuda",
              "driving": rng.rand(B, 5, 256, 256, 3).astype(np.float32),
              "driving_audio": rng.randn(B, 5, 28, 12).astype(np.float32),
              "driving_pose": rng.randn(B, 5, 6).astype(np.float32)}
-    ref = step_gradients(cfg, batch, seed, "cpu", torch.float64)
-    cpu32 = step_gradients(cfg, batch, seed, "cpu", torch.float32)
-    totals = {}
-    for k, r in ref["grads"].items():
-        model = k.split(".")[0]
-        totals[model] = totals.get(model, 0.0) + float((r ** 2).sum())
+    return held_step(
+        "train_cpu_vs_card",
+        *(step_gradients(cfg, batch, seed, "cpu", dt)
+          for dt in (torch.float64, torch.float32)),
+        lambda: step_gradients(cfg, batch, seed, device, torch.float32),
+        faults)
 
-    def grad_errors(side: dict) -> dict:
-        """Per leaf |diff| / |reference gradient|, a zero gradient (a conv
-        bias before a training-mode BatchNorm) measured against 1e-3 of
-        its model's gradient norm."""
-        err = {}
-        for k, r in ref["grads"].items():
-            floor = max(float(r.norm()), STEP_TOL["grad_rel_l2"]
-                        * totals[k.split(".")[0]] ** 0.5)
-            err[k] = float((side["grads"][k] - r).norm()) / floor
-        return err
 
-    cpu32_err = grad_errors(cpu32)
-    bound = {k: max(STEP_TOL["grad_rel_l2"], 3 * v)
-             for k, v in cpu32_err.items()}
+def on_threads(threads: int, fn):
+    """``fn()`` with torch's intra-op threads set to ``threads``."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(saved)
 
-    def compare(side: dict) -> dict:
-        """The side's worst readings, each against its bound (> 1 fails)."""
-        err = grad_errors(side)
-        over = {k: err[k] / bound[k] for k in err}
-        worst = max(over, key=over.get)
-        loss = max(abs(side["metrics"][k] - v) / abs(v)
-                   for k, v in ref["metrics"].items())
-        stats = max(float(((side["stats"][k] - r).abs()
-                           / (1 + r.abs())).max())
-                    for k, r in ref["stats"].items())
-        return {"err": err, "loss": loss, "stats": stats,
-                "grad_worst_leaf": worst, "grad_worst_over": over[worst],
-                "leaves_over": sum(v > 1 for v in over.values()),
-                "refused": (loss > STEP_TOL["loss_rtol"] or over[worst] > 1
-                            or stats > STEP_TOL["stats"])}
 
-    card = step_gradients(cfg, batch, seed, device, torch.float32)
-    clean = compare(card)
+def held_step(line: str, ref: dict, cpu32, card_side, faults: dict
+              ) -> dict:
+    """Hold the card's side of a training gradient (``card_side()``) to
+    ``ref`` by ``step_comparison`` (``cpu32`` one CPU float32 side or a
+    list of them), then take it again with each of ``faults`` planted;
+    emit ``line`` with the readings and raise if the clean side is refused
+    or a fault that must be refused is not."""
+    compare, grad_errors, bound = step_comparison(ref, cpu32)
+    sides = cpu32 if isinstance(cpu32, list) else [cpu32]
+    cpu32_err = {k: max(grad_errors(side)[k] for side in sides)
+                 for k in ref["grads"]}
+    models = {k.split(".")[0] for k in ref["grads"]}
+    clean = compare(card_side())
     card_err = clean.pop("err")
     controls = {}
     for name, (entry, scale, must_refuse) in faults.items():
         with planted_fault(entry, scale):
-            reading = compare(step_gradients(cfg, batch, seed, device,
-                                             torch.float32))
+            reading = compare(card_side())
         del reading["err"]
         controls[name] = {**reading, "must_refuse": must_refuse}
     worst_leaf = clean["grad_worst_leaf"]
@@ -2352,19 +2507,18 @@ def cpu_vs_card_step(seed: int = 0, device: str = "cuda",
               "grad_err_median_by_model": {
                   model: float(np.median([v for k, v in card_err.items()
                                           if k.split(".")[0] == model]))
-                  for model in totals},
+                  for model in models},
               "cpu_float32_grad_err_median_by_model": {
                   model: float(np.median([v for k, v in cpu32_err.items()
                                           if k.split(".")[0] == model]))
-                  for model in totals},
+                  for model in models},
               "cpu_float32_grad_err_max": max(cpu32_err.values()),
               "controls": controls}
-    emit("train_cpu_vs_card", losses=ref["metrics"], bounds=STEP_TOL,
-         **result)
+    emit(line, losses=ref["metrics"], bounds=STEP_TOL, **result)
     missed = [name for name, c in controls.items()
               if c["must_refuse"] and not c["refused"]]
     if clean["refused"] or missed:
-        raise AssertionError(f"training step: card against CPU {result}; "
+        raise AssertionError(f"{line}: card against CPU {result}; "
                              f"planted faults not refused: {missed}")
     return result
 
@@ -2415,6 +2569,350 @@ def training_runs(device: str) -> dict:
                 for mode in TRAIN_PARAMS}
         bf16_step(root, work, device)
     return {"runs": runs}
+
+
+# ------------------------------------- phase 9: part2 and the evaluation modes
+
+# configs/train_part2.yaml's augmentation and train_params (the card's
+# machine may lack PyYAML; tests hold these to the file)
+PART2_AUGMENTATION = {
+    "crop_mouth_param": {"center_x": 135, "center_y": 190, "mask_width": 100,
+                         "mask_height": 60},
+    "rotation_param": {"degrees": 30},
+    "perspective_param": {"pers_num": 30, "enlarge_num": 40},
+    "flip_param": {"horizontal_flip": True, "time_flip": False},
+    "jitter_param": {"brightness": 0, "contrast": 0, "saturation": 0,
+                     "hue": 0}}
+PART2_PARAMS = {
+    "type": "linear_4", "classify": True, "smooth": False, "jaco_net": "cnn",
+    "ldmark": "fake", "generator": "not", "num_epochs": 300,
+    "num_repeats": 1, "epoch_milestones": [60, 90], "lr_generator": 2.0e-4,
+    "lr_discriminator": 2.0e-4, "lr_kp_detector": 2.0e-4,
+    "lr_audio_feature": 2.0e-4, "batch_size": 16,
+    "scales": [1, 0.5, 0.25, 0.125], "checkpoint_freq": 1, "log_every": 10,
+    "steps_per_dispatch": 1,
+    "transform_params": {"sigma_affine": 0.05, "sigma_tps": 0.005,
+                         "points_tps": 5},
+    "loss_weights": {"generator_gan": 0, "discriminator_gan": 0,
+                     "feature_matching": [10, 10, 10, 10],
+                     "perceptual": [10, 10, 10, 10, 10],
+                     "equivariance_value": 0, "equivariance_jacobian": 0,
+                     "emo": 10}}
+PART2_ROWS = 16 * 16            # the YAML's batch x 16 frames: images a step
+PART2_STEPS = 3                 # per run; the first warms up
+# (name, type, device augmentation, resumed): the YAML's linear_4 with the
+# host and the device augmentation, map_4 by override
+PART2_RUNS = (("linear_4 host", "linear_4", False, False),
+              ("linear_4 device", "linear_4", True, True),
+              ("map_4 host", "map_4", False, False))
+PART2_KERNELS = {"linear_4": ("kp_expectation",),
+                 "map_4": ("kp_expectation", "kp_expectation_backward")}
+EVAL_VIDEOS = 2
+# the card's reconstruction metrics against the CPU's: |difference| for
+# L1 (the render's per-frame mean bound), SSIM and AKD (in [-1, 1]
+# coordinates: 0.13 pixel at 256), relative for PSNR and AED
+EVAL_TOL = {"l1": (3e-3, "abs"), "ssim": (1e-3, "abs"),
+            "psnr": (1e-2, "rel"), "akd": (1e-3, "abs"),
+            "aed": (1e-2, "rel")}
+FRAME_BOUNDS = (1e-2, 3e-3)     # per-frame mean |difference| max, mean
+
+
+def write_mead_tree(root: str, identities: int = 4, frames: int = 30,
+                    seed: int = 12) -> None:
+    """A seeded MEAD-layout tree: per identity a neutral and an emotional
+    clip, each a ``frames.eammpack`` of 256x256 frames (no PNG codec
+    needed), an MFCC window per frame and a pose track."""
+    from eamm_tpu_torch.data.packed import write_pack
+    rng = np.random.RandomState(seed)
+    emotions = ("angry", "happy", "sad", "surprised")
+    for i in range(identities):
+        for emo in ("neutral", emotions[i % len(emotions)]):
+            clip = f"M{i:03d}/{emo}_001"
+            img = os.path.join(root, "MEAD_fomm_crop", clip)
+            os.makedirs(img)
+            write_pack(os.path.join(img, "frames.eammpack"),
+                       list(range(frames)),
+                       rng.randint(0, 256, (frames, 256, 256, 3), np.uint8))
+            for sub, arr in (("MEAD_MFCC", rng.randn(frames, 28, 13)),
+                             ("MEAD_fomm_pose_crop", rng.randn(frames, 7))):
+                path = os.path.join(root, sub, clip + ".npy")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                np.save(path, arr)
+
+
+def part2_config(root: str, model_config: dict, etype: str,
+                 device_augmentation: bool, **overrides) -> dict:
+    tp = json.loads(json.dumps(PART2_PARAMS))
+    tp.update(type=etype, **overrides)
+    return {**json.loads(json.dumps(model_config)), "train_params": tp,
+            "dataset_params": {
+                "name": "MEAD", "root_dir": root,
+                "frame_shape": [256, 256, 3], "id_sampling": False,
+                "device_augmentation": device_augmentation,
+                "augmentation_params": PART2_AUGMENTATION}}
+
+
+def frozen_checkpoints(cfg: dict, work: str) -> tuple[list, dict]:
+    """The reference's FOMM and audio checkpoints of part2's frozen models
+    drawn from seed 5 -> (the CLI's flags, their tensors by model)."""
+    from eamm_tpu_torch.train.loop import build_models
+    from eamm_tpu_torch.train.steps import PART2_FROZEN
+    models = build_models(cfg, "train_part2", seed=5, device="cpu")
+    tensors = {n: {k: v.clone() for k, v in models[n].state_dict().items()}
+               for n in PART2_FROZEN}
+    fomm = os.path.join(work, "part2_fomm.pth.tar")
+    audio = os.path.join(work, "part2_audio.pth.tar")
+    torch.save({"kp_detector": tensors["kp_detector"]}, fomm)
+    torch.save({n: tensors[n] for n in ("audio_feature", "kp_detector_a")},
+               audio)
+    return ["--fomm_checkpoint", fomm, "--audio_checkpoint", audio], tensors
+
+
+def part2_entry_point(name: str, etype: str, device_augmentation: bool,
+                      resume: bool, root: str, work: str,
+                      device: str = "cuda") -> dict:
+    """``eamm-torch-run --mode train_part2`` at FULL_CONFIG widths and the
+    YAML's batch: PART2_STEPS steps with every launch count zeroed just
+    before and read just after (K3 must launch, and K3b with map_4), each
+    step's wall seconds, peak memory; every loss finite, emo_detector
+    changed, the frozen models (weights and BatchNorm statistics) bit for
+    bit the checkpoints'; with ``resume`` one more step from the
+    checkpoint with ``--checkpoint latest``, under ``torch.profiler``
+    (``profiled_step``)."""
+    from eamm_tpu_torch.cli.run import main as run_main
+    from eamm_tpu_torch.train.logging import read_scalars
+    from eamm_tpu_torch.train.loop import build_models
+    cfg = part2_config(root, FULL_CONFIG, etype, device_augmentation,
+                       num_repeats=4, log_every=1)
+    tag = name.replace(" ", "_")
+    path = os.path.join(work, f"part2_{tag}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    flags, frozen = frozen_checkpoints(cfg, work)
+    log = os.path.join(work, f"log_part2_{tag}")
+    argv = ["--config", path, "--mode", "train_part2", "--log_dir", log,
+            *flags, *(["--cpu"] if device == "cpu" else [])]
+    with timed_steps("make_part2_step") as (walls, profiled):
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, counts = drive(f"train_part2 {name}", PART2_KERNELS[etype],
+                              lambda: run_main(argv + ["--max_steps",
+                                                       str(PART2_STEPS)]),
+                              info={"steps": PART2_STEPS})
+        run_seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        profiled["on"] = True
+        resumed = (run_main(argv + ["--max_steps", "1", "--checkpoint",
+                                    "latest"]) if resume else None)
+    drawn = build_models(cfg, "train_part2", seed=0, device="cpu")
+    after = model_tensors(state.models)
+    for n, tensors in frozen.items():
+        if any(not torch.equal(v, after[n][k].cpu())
+               for k, v in tensors.items()):
+            raise AssertionError(f"part2 {name}: frozen {n} changed")
+    if all(torch.equal(v, after["emo_detector"][k].cpu())
+           for k, v in drawn["emo_detector"].state_dict().items()):
+        raise AssertionError(f"part2 {name}: emo_detector did not change")
+    (run,) = os.listdir(log)
+    losses = {t: [float(v) for v in vals] for t, (_, vals) in read_scalars(
+        os.path.join(log, run, "scalars.jsonl")).items()}
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"part2 {name}: a loss is not finite {losses}")
+    if state.step != PART2_STEPS or (resume and resumed.step
+                                     != PART2_STEPS + 1):
+        raise AssertionError(f"part2 {name}: steps {state.step}")
+    result = {"run": name, "type": etype,
+              "device_augmentation": device_augmentation,
+              "batch": cfg["train_params"]["batch_size"], "frames": 16,
+              "steps": PART2_STEPS, "step_seconds": walls[:PART2_STEPS],
+              "step_seconds_median": float(np.median(
+                  walls[1:PART2_STEPS])),
+              "run_seconds": run_seconds, "peak_memory_allocated": peak,
+              "allocated_before": before, "launches": counts,
+              "launches_per_step": {k: v / PART2_STEPS
+                                    for k, v in counts.items()},
+              "losses": losses, "frozen_unchanged": sorted(frozen),
+              "resumed_at": resumed.step if resume else None,
+              "resumed_step_profile": profiled.get("summary"),
+              "card": card_line()}
+    emit("part2_entry_point", **result)
+    return result
+
+
+def part2_step_gradients(cfg: dict, batch: dict, seed: int, where: str,
+                         dtype: torch.dtype) -> dict:
+    """One part2 gradient on ``where`` in ``dtype``: the metrics,
+    emo_detector's gradient leaves and new BatchNorm statistics, in
+    float64 on the CPU (``step_gradients``' form)."""
+    from eamm_tpu_torch.train import steps as S
+    from eamm_tpu_torch.train.loop import build_models
+    from eamm_tpu_torch.train.optim import make_optimizer
+    models = build_models(cfg, "train_part2", seed=seed, device="cpu")
+    noise = np.random.RandomState(seed + 1)
+    with torch.no_grad():
+        for m in models.values():
+            for k, p in m.named_parameters():
+                if "jacobian" in k and k.endswith("weight"):
+                    p.copy_(torch.from_numpy(0.005 * noise.randn(
+                        *p.shape).astype(np.float32)))
+    for m in models.values():
+        m.to(where, dtype)
+    state = S.init_part2_state(models, make_optimizer)
+    metrics = S.part2_grads(state, cfg["train_params"],
+                            S.to_device(batch, where))
+    emo = models["emo_detector"]
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {f"emo_detector.{k}": p.grad.double().cpu()
+                      for k, p in emo.named_parameters()
+                      if p.grad is not None},
+            "stats": {f"emo_detector.{k}": v.double().cpu()
+                      for k, v in emo.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))}}
+
+
+def part2_cpu_vs_card(seed: int = 0, device: str = "cuda") -> dict:
+    """One part2 gradient (``map_4``, ``smooth`` on) at TINY widths (the
+    emotion hourglass narrow) from the same seeded weights and batch (2
+    clips of 3 frames), on the CPU in float64, on the CPU in float32 and
+    on the card in float32, held as phase 8's step is (``held_step``),
+    with one difference: each leaf's float32 error is the largest of the
+    CPU's float32 steps on 1, 2, 4 and 8 threads (four summation orders).
+    A leaf's float32 error here is not one number but a spread: the
+    decoder's BatchNorm biases are sums that cancel, and one summation
+    order can tip a term across a kink (final.4.bias: 2e-5 on 1, 4 and 8
+    threads, 6.7e-3 on 2 threads and on the card).  As a control K3b's
+    Jacobian-map gradient x1.1 must be refused."""
+    cfg = part2_config("", EMOTION_TINY_CONFIG, "map_4", False,
+                       smooth=True)
+    rng = np.random.RandomState(seed)
+    B, T = 2, 3
+    batch = {"example_image": rng.rand(B, 256, 256, 3).astype(np.float32),
+             "driving": rng.rand(B, T, 256, 256, 3).astype(np.float32),
+             "transformed_driving": rng.rand(B, T, 256, 256, 3)
+             .astype(np.float32),
+             "driving_audio": rng.randn(B, T, 28, 12).astype(np.float32),
+             "driving_pose": rng.randn(B, T, 6).astype(np.float32),
+             "emotion": np.array([1, 4], np.int32)}
+    return held_step(
+        "part2_cpu_vs_card",
+        part2_step_gradients(cfg, batch, seed, "cpu", torch.float64),
+        [on_threads(n, lambda: part2_step_gradients(cfg, batch, seed, "cpu",
+                                                    torch.float32))
+         for n in (1, 2, 4, 8)],
+        lambda: part2_step_gradients(cfg, batch, seed, device, torch.float32),
+        {k: v for k, v in FAULTS.items() if k.startswith("K3b")})
+
+
+def write_vox_tree(root: str, videos: int = EVAL_VIDEOS, frames: int = 24,
+                   seed: int = 13) -> None:
+    """A seeded Vox-layout test split of packed 256x256 clips."""
+    from eamm_tpu_torch.data.packed import write_pack
+    rng = np.random.RandomState(seed)
+    for v in range(videos):
+        name = f"id{v}/v0"
+        img = os.path.join(root, "align_img", "test_fo", name)
+        os.makedirs(img)
+        write_pack(os.path.join(img, "frames.eammpack"), list(range(frames)),
+                   rng.randint(0, 256, (frames, 256, 256, 3), np.uint8))
+        for sub, arr in (("MFCC/test", rng.randn(frames, 28, 13)),
+                         ("align_pose/test_fo", rng.randn(frames, 7))):
+            path = os.path.join(root, sub, name + ".npy")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            np.save(path, arr)
+
+
+def eval_modes(work: str, device: str = "cuda") -> dict:
+    """``eamm-torch-run --mode reconstruction`` (with ``--emo_checkpoint``)
+    and ``--mode animate`` at FULL_CONFIG widths from seeded checkpoints
+    on a Vox test split of EVAL_VIDEOS clips, on the card (launch counts
+    zeroed just before each mode and read just after; K1-K3 must launch)
+    and on the CPU: the card's metrics finite and within EVAL_TOL of the
+    CPU's, the saved uint8 animations within FRAME_BOUNDS (per-frame mean
+    |difference| in [0, 1])."""
+    from eamm_tpu_torch.cli.run import main as run_main
+    root = os.path.join(work, "vox")
+    write_vox_tree(root)
+    models = cfg.build_all(FULL_CONFIG)
+    gen = torch.Generator().manual_seed(21)
+    for m in models.values():
+        reset_parameters(m, gen)
+    paths = save_checkpoints(models, work)
+    config = {**json.loads(json.dumps(FULL_CONFIG)),
+              "dataset_params": {"name": "Vox", "root_dir": root,
+                                 "frame_shape": [256, 256, 3]},
+              "reconstruction_params": {"num_videos": EVAL_VIDEOS},
+              "animate_params": {"num_pairs": EVAL_VIDEOS,
+                                 "normalization_params": {
+                                     "use_relative_movement": True,
+                                     "adapt_movement_scale": True}}}
+    path = os.path.join(work, "eval.json")
+    with open(path, "w") as f:
+        json.dump(config, f)
+    out, launches, walls = {}, {}, {}
+    for where in ("cuda", "cpu"):
+        if where == "cuda" and device != "cuda":
+            continue
+        log = os.path.join(work, f"eval_{where}")
+        argv = ["--config", path, "--log_dir", log, "--fomm_checkpoint",
+                paths["fomm"], "--num_videos", str(EVAL_VIDEOS),
+                *(["--cpu"] if where == "cpu" else [])]
+        recon = argv + ["--mode", "reconstruction", "--emo_checkpoint",
+                        paths["emo"]]
+        anim = argv + ["--mode", "animate"]
+        for mode, args in (("reconstruction", recon), ("animate", anim)):
+            t0 = time.perf_counter()
+            if where == "cuda":
+                result, launches[mode] = drive(
+                    f"eval {mode}", RENDER_KERNELS,
+                    lambda: run_main(args))
+            else:
+                result = run_main(args)
+            walls[f"{mode} {where}"] = time.perf_counter() - t0
+            if mode == "reconstruction":
+                out[where] = result
+        (run,) = [r for r in os.listdir(log) if os.path.isdir(
+            os.path.join(log, r, "animation"))]
+        out[f"{where}_frames"] = [
+            np.load(os.path.join(log, run, "animation", f"pair_{i}.npy"))
+            for i in range(EVAL_VIDEOS)]
+    card = out.get("cuda", out["cpu"])
+    if not all(np.isfinite(v) for k, v in card.items() if k != "videos"):
+        raise AssertionError(f"eval: metrics not finite {card}")
+    diffs = {}
+    for k, (tol, kind) in EVAL_TOL.items():
+        a, b = card[f"reconstruction_{k}"], out["cpu"][f"reconstruction_{k}"]
+        d = abs(a - b) / (abs(b) if kind == "rel" else 1.0)
+        diffs[k] = d
+        if d > tol:
+            raise AssertionError(f"eval: {k} card {a} CPU {b}")
+    frames = []
+    for a, b in zip(out.get("cuda_frames", out["cpu_frames"]),
+                    out["cpu_frames"]):
+        per = np.abs(a.astype(np.float64) - b).mean(axis=(1, 2, 3)) / 255.0
+        frames.append({"max": float(per.max()), "mean": float(per.mean())})
+        if per.max() >= FRAME_BOUNDS[0] or per.mean() >= FRAME_BOUNDS[1]:
+            raise AssertionError(f"eval: animation frames {frames}")
+    result = {"metrics_card": card, "metrics_cpu": out["cpu"],
+              "metric_differences": diffs, "bounds": EVAL_TOL,
+              "animation_frame_diff": frames, "launches": launches,
+              "wall_seconds": walls, "card": card_line()}
+    emit("eval_modes", **result)
+    return result
+
+
+def part2_phase(device: str = "cuda") -> dict:
+    """Phase 9: the TINY part2 gradient on CPU and card, the three part2
+    runs at full width through the entry point, the evaluation modes."""
+    part2_cpu_vs_card(device=device)
+    with tempfile.TemporaryDirectory() as work:
+        root = os.path.join(work, "mead")
+        write_mead_tree(root)
+        runs = {name: part2_entry_point(name, etype, aug, resume, root,
+                                        work, device)
+                for name, etype, aug, resume in PART2_RUNS}
+        evaluation = eval_modes(work, device)
+    return {"runs": runs, "eval": evaluation}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2592,19 +3090,30 @@ def backward_timings() -> dict:
                      "library_ms": times["library_ms"]["median"],
                      "plain_ms": time_ms(lambda: plain(*args)),
                      "bound": bound_ms(n_bytes, ops), "timing": times}
-    args = kp_grad_case(96, gen)
-    pred, jmap = args[:2]
     wrapper, plain = BACKWARD_KERNELS["kp_expectation_backward"][:2]
-    times = in_turns({"ms": graphed(lambda: wrapper(*args))})
-    P = pred.numel()
+
+    def k3b_bound(args):
+        # read pred and jmap, the output gradients; write both gradients;
+        # ~30 operations a pixel (three passes' exp, the 4-term sum twice)
+        return bound_ms(2 * nbytes(*args[:2]) + nbytes(*args[3:]),
+                        30 * args[0].numel())
+
+    args = kp_grad_case(96, gen)
+    # part2's map_4 head: 256 images of 4 rows, in the same turns
+    map4 = kp_grad_case(PART2_ROWS, gen, K=4)
+    times = in_turns({"ms": graphed(lambda: wrapper(*args)),
+                      "map_4_ms": graphed(lambda: wrapper(*map4))})
+    bound, by = k3b_bound(map4)
     out["kp_expectation_backward"] = {
         "ms": times["ms"]["median"], "library_ms": None,
         "plain_ms": time_ms(lambda: plain(*args)),
-        # read pred and jmap, the output gradients; write both gradients;
-        # ~30 operations a pixel (three passes' exp, the 4-term sum twice)
-        "bound": bound_ms(2 * nbytes(pred, jmap) + nbytes(*args[3:]),
-                          30 * P),
-        "timing": times}
+        "bound": k3b_bound(args),
+        "timing": {**times, "map_4": {
+            "shape": [list(map4[0].shape), list(map4[1].shape)],
+            "ms": times["map_4_ms"]["median"],
+            "plain_ms": time_ms(lambda: plain(*map4)),
+            "bound_ms": bound, "bound_by": by,
+            "share": bound / times["map_4_ms"]["median"]}}}
     return out
 
 
@@ -2704,6 +3213,7 @@ def main() -> int:
     serving = serving_phase(pipe)
     artifact_phase(pipe)
     training = training_phase()
+    part2 = part2_phase()
     times = {**timings(captured), **backward_timings()}
 
     # whose launches each row counts
@@ -2738,6 +3248,15 @@ def main() -> int:
                      "launches_by_serving_route": {
                          route: counts.get(name, 0)
                          for route, counts in serving.items()},
+                     "launches_per_part2_step": {
+                         run_name: run["launches_per_step"][name]
+                         for run_name, run in part2["runs"].items()},
+                     "launches_by_eval_mode": {
+                         **{mode: counts[name] for mode, counts
+                            in part2["eval"]["launches"].items()},
+                         **{f"visualizer {mode}":
+                            run["visualizer"][0]["launches"][name]
+                            for mode, run in training["runs"].items()}},
                      **{k: t[k] for k in ("timing", "plan") if k in t}})
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,6 +1,6 @@
 """Host-side input preparation (numpy and scipy): face crop and alignment
 for the demo (``preprocess``, ``landmarks``), augmentation
-(``augmentation``), the AVI writers (``native``), and part1 training's
-LRW dataset, repeater and loader (``datasets``) over PNG or packed frames
-(``packed``).  The part2 datasets and the native PNG batch decoder are not
-ported yet."""
+(``augmentation``), the AVI writers (``native``), and the training and
+evaluation datasets (LRW, Vox, MEAD, pairs), repeater and loader
+(``datasets``) over PNG or packed frames (``packed``).  The native PNG
+batch decoder is not ported yet."""

@@ -1,6 +1,6 @@
-"""Part1 training's dataset reader, repeater and loader (NHWC numpy).
+"""Training and evaluation datasets, repeater and loader (NHWC numpy).
 
-The port's copy of the part1 pieces of ``eamm_tpu/data/datasets.py``:
+The port's copy of ``eamm_tpu/data/datasets.py``:
 
 - **LRW / AudioDataset**: ``Image/{train_fo,test_fo}/<word>/<clip>/<N>.png``,
   ``MFCC/{train,test}/<word>/<clip>/<N>.npy`` ([28, 13] windows),
@@ -9,13 +9,26 @@ The port's copy of the part1 pieces of ``eamm_tpu/data/datasets.py``:
   [16,28,12] and driving_pose [16,6], float32, or with
   ``device_augmentation`` uint8 frames and the per-clip flip and jitter
   decisions (``ops/augment.py`` applies them on the device);
-- ``DatasetRepeater`` (epoch lengthening) and ``DataLoader`` (a thread
+- **Vox / VoxDataset**: ``align_img/...``, per-video ``MFCC/<name>.npy``
+  ([M, 28, 13]) and ``align_pose/<name>.npy``, the same sample;
+- **MEAD / MeadDataset** (part2): ``MEAD_fomm_crop/<id>/<clip>/<N>.png``,
+  ``MEAD_MFCC/<id>/<clip>.npy``, ``MEAD_fomm_pose_crop/<id>/<clip>.npy``;
+  the example image is a random frame of a random *neutral* clip of the
+  same identity, the pose is one-euro smoothed, and the sample adds the
+  integer ``emotion`` label (from the clip name, ``EMOTIONS``) and
+  ``transformed_driving``, the window through the mouth mask, flip,
+  rotation, perspective and jitter: on the host, or with
+  ``device_augmentation`` as uint8 frames and ``tdrv_*`` decisions that
+  ``ops/augment.py`` applies on the device;
+- ``PairedDataset`` (source / driving pairs for ``animate``),
+  ``DatasetRepeater`` (epoch lengthening) and ``DataLoader`` (a thread
   pool decoding samples, a bounded queue of prefetched batches).
 
 Frames come from a ``frames.eammpack`` next to the PNGs when there is one
 (``data/packed.py``), else from the PNGs through imageio (the JAX
-package's libpng batch decoder is not ported).  ``VoxDataset``,
-``MeadDataset`` and ``PairedDataset`` wait for part2 (ROADMAP Queue 1).
+package's libpng batch decoder is not ported).  The host draws from
+Python's ``random`` and numpy's global state in the JAX package's order,
+so the same seeds give the same sample in both packages.
 """
 from __future__ import annotations
 
@@ -27,6 +40,11 @@ import threading
 import numpy as np
 
 from eamm_tpu_torch.data.augmentation import AllAugmentationTransform
+from eamm_tpu_torch.ops.filters import one_euro_filter_np
+
+# the demo's emotion vocabulary, in its documented order
+EMOTIONS = ("angry", "contempt", "disgusted", "fear", "happy", "neutral",
+            "sad", "surprised")
 
 
 def decode_pngs(paths: list[str], h: int, w: int) -> np.ndarray:
@@ -117,6 +135,12 @@ def _discover_clips(image_dir: str) -> list[str]:
     return clips
 
 
+def _video_list(video_list, image_dir: str) -> list:
+    """An explicit list (or a ``.npy`` of one), else every clip on disk."""
+    if video_list is None:
+        return _discover_clips(image_dir)
+    return (list(np.load(video_list)) if isinstance(video_list, str)
+            else list(video_list))
 
 
 def _make_device_aug(augmentation_params):
@@ -161,6 +185,76 @@ def _sample_device_aug(flip, jitter):
     return out
 
 
+def _make_mead_device_aug(augmentation_params) -> dict:
+    """The samplers of the device MEAD pipeline: mouth mask, flip,
+    rotation, perspective and jitter (the MEAD config's set); resize and
+    crop are refused.  A sampler exists exactly where the host pipeline
+    would build the transform (its parameters not None), so an absent one
+    draws nothing and the random stream stays the host run's."""
+    from eamm_tpu_torch.data.augmentation import (ColorJitter, MouthCrop,
+                                                  RandomFlip,
+                                                  RandomPerspective,
+                                                  RandomRotation)
+    ap = augmentation_params or {}
+    supported = {"crop_mouth_param", "flip_param", "rotation_param",
+                 "perspective_param", "jitter_param"}
+    extra = {k for k, v in ap.items() if v is not None} - supported
+    if extra:
+        raise ValueError(
+            "device_augmentation (MEAD) supports mouth/flip/rotation/"
+            f"perspective/jitter only; config also has {sorted(extra)}")
+
+    def opt(key, cls):
+        return cls(**ap[key]) if ap.get(key) is not None else None
+
+    return {"mouth": opt("crop_mouth_param", MouthCrop),
+            "flip": opt("flip_param", RandomFlip),
+            "rot": opt("rotation_param", RandomRotation),
+            "pers": opt("perspective_param", RandomPerspective),
+            "jitter": opt("jitter_param", ColorJitter)}
+
+
+def _sample_mead_device_aug(samplers: dict, num_frames: int, h: int,
+                            w: int) -> dict:
+    """One clip's ``tdrv_*`` decisions, drawn in AllAugmentationTransform's
+    order (mouth noise, flip coins, rotation angle, a perspective per
+    frame, jitter factors); the matrices inverted on the host in float64,
+    then float32."""
+    keys = {}
+    mouth = samplers["mouth"]
+    if mouth is not None:
+        noise = mouth.sample_noise(num_frames)
+        keys["tdrv_mouth_noise"] = np.clip(np.rint(noise * 255.0), 0,
+                                           255).astype(np.uint8)
+        keys["tdrv_mouth_rect"] = np.asarray(mouth.rect, np.int32)
+    flip = samplers["flip"]
+    if flip is not None:
+        ft = 1 if (random.random() < 0.5 and flip.time_flip) else 0
+        fh = 0
+        if not ft:
+            fh = 1 if (random.random() < 0.5 and flip.horizontal_flip) else 0
+        keys["tdrv_flip_time"] = np.uint8(ft)
+        keys["tdrv_flip_h"] = np.uint8(fh)
+    if samplers["rot"] is not None:
+        keys["tdrv_rot_minv"] = np.linalg.inv(
+            samplers["rot"].sample_matrix(h, w)).astype(np.float32)
+    if samplers["pers"] is not None:
+        keys["tdrv_pers_minv"] = np.asarray(
+            [np.linalg.inv(samplers["pers"].sample_matrix(h, w))
+             for _ in range(num_frames)], np.float32)
+    if samplers["jitter"] is not None:
+        keys["tdrv_jitter"] = np.asarray(samplers["jitter"].sample_factors(),
+                                         np.float32)
+    return keys
+
+
+def _window(mfcc, pose, r: int) -> tuple:
+    """The 16-step window after start ``r``: (mfcc [16, 28, 12], pose
+    [16, 6]) from per-step arrays."""
+    return (np.array([mfcc[r + i][:, 1:] for i in range(1, 17)], np.float32),
+            np.array([pose[r + i, :-1] for i in range(1, 17)], np.float32))
+
+
 class AudioDataset:
     """LRW-layout dataset (ref:frames_dataset.py:75-194)."""
 
@@ -172,11 +266,7 @@ class AudioDataset:
         self.image_dir = os.path.join(root_dir, "Image", split_img)
         self.audio_dir = os.path.join(root_dir, "MFCC", split_audio)
         self.pose_dir = os.path.join(root_dir, "pose", split_img)
-        if video_list is not None:
-            self.videos = list(np.load(video_list)) \
-                if isinstance(video_list, str) else list(video_list)
-        else:
-            self.videos = _discover_clips(self.image_dir)
+        self.videos = _video_list(video_list, self.image_dir)
         self.is_train = is_train
         self.frame_hw = tuple(frame_shape[:2])
         self.device_aug = bool(device_augmentation) and is_train
@@ -221,6 +311,176 @@ class AudioDataset:
         if self.device_aug:
             sample.update(_sample_device_aug(*self.dev_samplers))
         return sample
+
+
+class VoxDataset:
+    """VoxCeleb-layout dataset (``align_img``, per-video MFCC and pose)."""
+
+    def __init__(self, root_dir, frame_shape=(256, 256, 3), id_sampling=False,
+                 is_train=True, random_seed=0, pairs_list=None,
+                 augmentation_params=None, video_list=None, name=None,
+                 device_augmentation=False):
+        split_img = "train_fo" if is_train else "test_fo"
+        split_audio = "train" if is_train else "test"
+        self.image_dir = os.path.join(root_dir, "align_img", split_img)
+        self.audio_dir = os.path.join(root_dir, "MFCC", split_audio)
+        self.pose_dir = os.path.join(root_dir, "align_pose", split_img)
+        self.pairs_list = pairs_list
+        self.videos = _video_list(video_list, self.image_dir)
+        self.is_train = is_train
+        self.frame_hw = tuple(frame_shape[:2])
+        self.device_aug = bool(device_augmentation) and is_train
+        if self.device_aug:
+            self.dev_samplers = _make_device_aug(augmentation_params)
+            self.transform = None
+        else:
+            self.transform = (
+                AllAugmentationTransform(**(augmentation_params or {}))
+                if is_train else None)
+
+    def __len__(self):
+        return len(self.videos)
+
+    @staticmethod
+    def _window_start(n: int) -> int:
+        return 0 if 16 < n < 24 else random.choice(range(3, n - 20))
+
+    def __getitem__(self, idx):
+        name = str(self.videos[idx]).split(".")[0]
+        path = os.path.join(self.image_dir, name)
+        mfcc = np.load(os.path.join(self.audio_dir, name + ".npy"))
+        pose = np.load(os.path.join(self.pose_dir, name + ".npy"))
+        r = self._window_start(len(mfcc))
+        mfccs, poses = _window(mfcc, pose, r)
+        decoded = _read_frames(
+            [os.path.join(path, f"{r + ind}.png") for ind in range(0, 17)],
+            hw=None, uint8=self.device_aug)
+        example_image, video_array = decoded[0], decoded[1:]
+        if self.transform is not None:
+            video_array = np.asarray(self.transform(video_array))
+        sample = {
+            "example_image": example_image if self.device_aug
+            else example_image.astype(np.float32),
+            "driving": video_array if self.device_aug
+            else video_array.astype(np.float32),
+            "driving_audio": mfccs, "driving_pose": poses,
+        }
+        if self.device_aug:
+            sample.update(_sample_device_aug(*self.dev_samplers))
+        return sample
+
+
+class MeadDataset:
+    """MEAD-layout dataset for part2: the clean ``driving`` window, its
+    augmented ``transformed_driving`` copy (or the decisions to build it on
+    the device) and the integer ``emotion`` label."""
+
+    def __init__(self, root_dir, frame_shape=(256, 256, 3), id_sampling=False,
+                 is_train=True, random_seed=0, augmentation_params=None,
+                 video_list=None, neutral_dict=None, name=None,
+                 device_augmentation=False):
+        self.image_dir = os.path.join(root_dir, "MEAD_fomm_crop")
+        self.audio_dir = os.path.join(root_dir, "MEAD_MFCC")
+        self.pose_dir = os.path.join(root_dir, "MEAD_fomm_pose_crop")
+        self.videos = _video_list(video_list, self.image_dir)
+        if neutral_dict is None:
+            self.neutral = self._build_neutral_dict()
+        elif isinstance(neutral_dict, str):
+            self.neutral = np.load(neutral_dict, allow_pickle=True).item()
+        else:
+            self.neutral = dict(neutral_dict)
+        self.is_train = is_train
+        self.frame_hw = tuple(frame_shape[:2])
+        self.device_aug = bool(device_augmentation)
+        if self.device_aug:
+            self.dev_samplers = _make_mead_device_aug(augmentation_params)
+            self.transform = None
+        else:
+            self.transform = AllAugmentationTransform(
+                **(augmentation_params or {}))
+
+    def _build_neutral_dict(self) -> dict:
+        """identity -> its clips whose name says neutral."""
+        out: dict = {}
+        for clip in self.videos:
+            if "neutral" in clip.lower():
+                out.setdefault(clip.split("/")[0], []).append(clip)
+        return out
+
+    @staticmethod
+    def emotion_label(name: str) -> int:
+        """The index in EMOTIONS of the first emotion the name contains
+        (neutral when none)."""
+        low = name.lower()
+        for i, emo in enumerate(EMOTIONS):
+            if emo in low:
+                return i
+        return EMOTIONS.index("neutral")
+
+    def __len__(self):
+        return len(self.videos)
+
+    def __getitem__(self, idx):
+        from eamm_tpu_torch.data import packed
+        name = str(self.videos[idx])
+        path = os.path.join(self.image_dir, name)
+        neu_list = self.neutral.get(name.split("/")[0], [name])
+        neu_path = os.path.join(self.image_dir,
+                                str(np.random.choice(neu_list)))
+        mfcc = np.load(os.path.join(self.audio_dir, name + ".npy"))
+        pose = one_euro_filter_np(
+            np.load(os.path.join(self.pose_dir, name + ".npy")),
+            mincutoff=0.01, beta=0.7, freq=100)
+        neu_pack = packed.find_pack(neu_path)
+        if neu_pack is not None:
+            neu_name = f"{int(np.random.choice(packed.frame_ids(neu_pack)))}.png"
+        else:
+            neu_name = str(np.random.choice(sorted(
+                f for f in os.listdir(neu_path) if f.endswith(".png"))))
+        n = len(mfcc)
+        r = 0 if 16 < n < 24 else random.choice(range(3, n - 20))
+        mfccs, poses = _window(mfcc, pose, r)
+        decoded = _read_frames(
+            [os.path.join(neu_path, neu_name)]
+            + [os.path.join(path, f"{r + ind}.png") for ind in range(1, 17)],
+            hw=None, uint8=self.device_aug)
+        example_image, video_array = decoded[0], decoded[1:]
+        sample = {"driving_audio": mfccs, "driving_pose": poses,
+                  "emotion": np.int32(self.emotion_label(name))}
+        if self.device_aug:
+            sample["example_image"] = example_image
+            sample["driving"] = video_array
+            T, h, w = video_array.shape[:3]
+            sample.update(_sample_mead_device_aug(self.dev_samplers, T, h, w))
+        else:
+            transformed = np.asarray(self.transform(np.array(video_array)))
+            sample["example_image"] = example_image.astype(np.float32)
+            sample["driving"] = video_array.astype(np.float32)
+            sample["transformed_driving"] = transformed.astype(np.float32)
+        return sample
+
+
+class PairedDataset:
+    """Source / driving pairs of a dataset's samples, drawn from ``seed``
+    among the first ``number_of_pairs`` items (``animate``'s evaluation)."""
+
+    def __init__(self, initial_dataset, number_of_pairs, seed=0):
+        self.initial_dataset = initial_dataset
+        rng = np.random.RandomState(seed)
+        max_idx = min(number_of_pairs, len(initial_dataset))
+        xy = np.mgrid[:max_idx, :max_idx].reshape(2, -1).T
+        number_of_pairs = min(xy.shape[0], number_of_pairs)
+        self.pairs = xy.take(rng.choice(xy.shape[0], number_of_pairs,
+                                        replace=False), axis=0)
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def __getitem__(self, idx):
+        first = self.initial_dataset[self.pairs[idx][0]]
+        second = self.initial_dataset[self.pairs[idx][1]]
+        return {**{f"driving_{k}": v for k, v in first.items()},
+                **{f"source_{k}": v for k, v in second.items()}}
 
 
 class DatasetRepeater:

@@ -112,6 +112,11 @@ def read_frames(pack_path: str, ids: list[int],
     return np.asarray(raw, np.float32) * np.float32(1.0 / 255.0)
 
 
+def frame_ids(pack_path: str) -> list[int]:
+    """The frame ids stored in a pack, ascending."""
+    return sorted(_cache.get(pack_path).index)
+
+
 def frame_size(pack_path: str) -> tuple[int, int]:
     h, w, _c = _cache.get(pack_path).shape
     return h, w

@@ -69,13 +69,18 @@ class OcclusionAwareGenerator(FoldedWeights, nn.Module):
 
     def decode(self, source_image: torch.Tensor,
                source_features: torch.Tensor, kp_driving: dict,
-               kp_source: dict) -> torch.Tensor:
-        """Frames [B, C, H, W] in [0, 1] for keypoint batch B."""
+               kp_source: dict, aux: dict | None = None) -> torch.Tensor:
+        """Frames [B, C, H, W] in [0, 1] for keypoint batch B.  A dict
+        passed as ``aux`` receives dense motion's outputs ('mask',
+        'sparse_deformed', 'deformation', 'occlusion_map'), which the
+        training visualizer draws."""
         B = kp_driving["value"].shape[0]
         if B % source_features.shape[0]:
             raise ValueError(f"feature batch {source_features.shape[0]} must "
                              f"divide keypoint batch {B}")
         motion = self.dense_motion_network(source_image, kp_driving, kp_source)
+        if aux is not None:
+            aux.update(motion)
         feats = source_features.permute(0, 2, 3, 1)             # NHWC view
         deformation = resize_bilinear(motion["deformation"], feats.shape[1:3])
         out = grid_sample_wide(feats.contiguous(), deformation)

@@ -25,6 +25,20 @@ def _unnormalize(coord: torch.Tensor, size: int,
     return ((coord + 1.0) * size - 1.0) * 0.5
 
 
+def _reflect(coord: torch.Tensor, low: float, high: float) -> torch.Tensor:
+    """Reflect pixel coordinates into [low / 2, high / 2] (torch's
+    ``reflect_coordinates``, which works on twice the coordinate range);
+    an empty span maps every coordinate to 0."""
+    span = high - low
+    if span <= 0:
+        return torch.zeros_like(coord)
+    c = (coord * 2.0 - low).abs()
+    extra = torch.fmod(c, span)
+    flips = torch.floor(c / span)
+    return torch.where(torch.fmod(flips, 2.0) == 0, extra + low,
+                       span - extra + low) * 0.5
+
+
 def check_shared_batch(image: torch.Tensor, grid: torch.Tensor) -> int:
     """Validate an NHWC image against a [B, Ho, Wo, 2] grid and return the
     number of grids each image serves."""
@@ -46,7 +60,9 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor, *,
     (last axis (x, y) in [-1, 1]) -> [B, Ho, Wo, C] in the image dtype.
 
     padding_mode 'zeros' gives out-of-range corners weight 0; 'border'
-    clamps the coordinates into the image first."""
+    clamps the coordinates into the image first; 'reflection' reflects
+    them about the image's edges (its pixel centres with
+    ``align_corners``, its outer borders without), then clamps."""
     group = check_shared_batch(image, grid)
     Bi, H, W, C = image.shape
     B, Ho, Wo, _ = grid.shape
@@ -55,11 +71,18 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor, *,
     g = grid.to(acc)
     x = _unnormalize(g[..., 0], W, align_corners)
     y = _unnormalize(g[..., 1], H, align_corners)
-    if padding_mode == "border":
+    if padding_mode == "reflection":
+        if align_corners:
+            x = _reflect(x, 0.0, 2.0 * (W - 1))
+            y = _reflect(y, 0.0, 2.0 * (H - 1))
+        else:
+            x = _reflect(x, -1.0, 2.0 * W - 1.0)
+            y = _reflect(y, -1.0, 2.0 * H - 1.0)
+    if padding_mode in ("border", "reflection"):
         x = x.clamp(0, W - 1)
         y = y.clamp(0, H - 1)
     elif padding_mode != "zeros":
-        raise ValueError(f"unsupported padding_mode {padding_mode!r}")
+        raise ValueError(f"unknown padding_mode {padding_mode!r}")
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     wx1 = x - x0

@@ -1,3 +1,3 @@
-"""Part1 training (``train_part1`` and ``train_part1_fine_tune``): steps,
-losses, the optimizer, checkpoints, metrics and the loop behind
-``eamm-torch-run`` (``cli/run.py``)."""
+"""Training (``train_part1``, ``train_part1_fine_tune`` and ``train_part2``):
+steps, losses, the optimizer, checkpoints, metrics, the checkpoint
+visualizer and the loop behind ``eamm-torch-run`` (``cli/run.py``)."""

@@ -19,8 +19,8 @@ _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
 def state_to_tree(state) -> dict:
-    """A ``Part1State`` -> the dict a checkpoint holds (tensors on the
-    CPU)."""
+    """A ``Part1State`` or ``Part2State`` -> the dict a checkpoint holds
+    (tensors on the CPU)."""
     tree = {"models": {name: {k: v.detach().cpu()
                               for k, v in m.state_dict().items()}
                        for name, m in state.models.items()},

@@ -1,17 +1,18 @@
-"""Part1 training orchestration: ``train_part1`` and
-``train_part1_fine_tune``.
+"""Training orchestration: ``train_part1``, ``train_part1_fine_tune`` and
+``train_part2``.
 
-Counterpart of ``eamm_tpu/train/loop.py`` for the part1 modes: dataset ->
-repeater -> loader -> per-step optimize, metrics flushed every
-``log_every`` steps, a checkpoint every 500 steps (epochs at
-``checkpoint_freq``), at ``max_steps`` and at the end, resume from the
-latest checkpoint, the SIGTERM/SIGINT emergency checkpoint at the next
-step boundary, ``grad_accum`` (K loader batches per optimizer step) or
+Counterpart of ``eamm_tpu/train/loop.py``: dataset -> repeater -> loader
+-> per-step optimize, metrics flushed every ``log_every`` steps, a
+checkpoint every 500 steps (part2: 1000; epochs at ``checkpoint_freq``),
+at ``max_steps`` and at the end, resume from the latest checkpoint, the
+SIGTERM/SIGINT emergency checkpoint at the next step boundary,
+``grad_accum`` (K loader batches per optimizer step) or
 ``steps_per_dispatch`` (K steps per call), and the per-epoch held-out
 loss when the test split exists.  Frozen weights come from the
-reference's ``.pth.tar`` files (``load_frozen_torch``).  The checkpoint
-visualization is not ported yet: the loop says so once and goes on.
-``train_part2`` waits for part2 (ROADMAP Queue 1).
+reference's ``.pth.tar`` files (``load_frozen_torch``).  With every
+checkpoint of a part1 mode, the first sample goes through the generator
+into a diagnostic image (``train/visualizer.py``), which never stops
+training.
 """
 from __future__ import annotations
 
@@ -25,34 +26,40 @@ import torch
 
 from eamm_tpu_torch import config as cfg
 from eamm_tpu_torch.data.datasets import (AudioDataset, DataLoader,
-                                          DatasetRepeater)
+                                          DatasetRepeater, MeadDataset,
+                                          VoxDataset)
 from eamm_tpu_torch.models.discriminator import MultiScaleDiscriminator
 from eamm_tpu_torch.models.vgg import Vgg19
 from eamm_tpu_torch.ops.augment import decode_and_augment
+from eamm_tpu_torch.ops.warp import grid_sample, resize_bilinear
 from eamm_tpu_torch.train import steps as S
+from eamm_tpu_torch.train.steps import _nchw, batch_statistics
 from eamm_tpu_torch.train.checkpoint import CheckpointManager, load_tree
 from eamm_tpu_torch.train.logging import MetricsLogger
 from eamm_tpu_torch.train.optim import make_module_optimizer, make_optimizer
+from eamm_tpu_torch.train.visualizer import Visualizer
 
 PART1_MODES = ("train_part1", "train_part1_fine_tune")
-SAVE_EVERY_STEPS = 500          # the reference's part1 checkpoint interval
+MODES = PART1_MODES + ("train_part2",)
+# the reference's checkpoint intervals, in steps
+SAVE_EVERY_STEPS = {"train_part1": 500, "train_part1_fine_tune": 500,
+                    "train_part2": 1000}
+DATASETS = {"LRW": AudioDataset, "Vox": VoxDataset, "MEAD": MeadDataset}
 
 
-def build_dataset(config: dict, is_train: bool = True) -> AudioDataset:
-    """The LRW dataset of ``dataset_params`` (part1 trains on LRW)."""
+def build_dataset(config: dict, is_train: bool = True):
+    """The dataset ``dataset_params`` names (LRW when it names none)."""
     dp = dict(config["dataset_params"])
-    name = dp.pop("name", "LRW")
-    if name != "LRW":
-        raise NotImplementedError(f"dataset {name!r} is not ported yet "
-                                  "(ROADMAP Queue 1); part1 reads LRW")
-    return AudioDataset(root_dir=dp.pop("root_dir"),
-                        frame_shape=tuple(dp.pop("frame_shape",
-                                                 (256, 256, 3))),
-                        id_sampling=dp.pop("id_sampling", False),
-                        is_train=is_train,
-                        augmentation_params=dp.pop("augmentation_params", {}),
-                        **{k: v for k, v in dp.items()
-                           if k in ("video_list", "device_augmentation")})
+    dataset_cls = DATASETS.get(dp.pop("name", "LRW"), AudioDataset)
+    return dataset_cls(root_dir=dp.pop("root_dir"),
+                       frame_shape=tuple(dp.pop("frame_shape",
+                                                (256, 256, 3))),
+                       id_sampling=dp.pop("id_sampling", False),
+                       is_train=is_train,
+                       augmentation_params=dp.pop("augmentation_params", {}),
+                       **{k: v for k, v in dp.items()
+                          if k in ("video_list", "neutral_dict",
+                                   "device_augmentation")})
 
 
 def build_discriminator(config: dict) -> MultiScaleDiscriminator:
@@ -67,19 +74,26 @@ def build_discriminator(config: dict) -> MultiScaleDiscriminator:
         num_kp=common["num_kp"])
 
 
-def build_models(config: dict, mode: str, use_gan: bool, seed: int = 0,
-                 device="cuda") -> dict:
-    """The part1 models, drawn from ``seed`` on the CPU (the Jacobian heads
-    at the reference's identity initialization), then moved to
-    ``device``; the fine-tune adds VGG19 and, with GAN, the
-    discriminator."""
+def build_models(config: dict, mode: str, use_gan: bool = False,
+                 seed: int = 0, device="cuda") -> dict:
+    """The mode's models, drawn from ``seed`` on the CPU (the Jacobian
+    heads at the reference's identity initialization), then moved to
+    ``device``.  Part1 holds the generator, both detectors and ATNet, the
+    fine-tune adds VGG19 and, with GAN, the discriminator; part2 holds
+    both detectors, ATNet and emo_detector (EmotionK, or EmotionMap for a
+    ``map`` type)."""
     torch.manual_seed(seed)
-    models = {"generator": cfg.build_generator(config),
-              "kp_detector": cfg.build_kp_detector(config),
-              "kp_detector_a": cfg.build_kp_detector_a(config),
-              "audio_feature": cfg.build_atnet(config)}
-    for name in ("kp_detector", "kp_detector_a"):
-        models[name].reset_jacobian()
+    models = {} if mode == "train_part2" else {
+        "generator": cfg.build_generator(config)}
+    models.update(kp_detector=cfg.build_kp_detector(config),
+                  kp_detector_a=cfg.build_kp_detector_a(config),
+                  audio_feature=cfg.build_atnet(config))
+    if mode == "train_part2":
+        kind = config["train_params"].get("type", "linear_4").split("_")[0]
+        models["emo_detector"] = cfg.build_emotion_detector(config, kind)
+    for m in models.values():
+        if hasattr(m, "reset_jacobian"):
+            m.reset_jacobian()
     if mode == "train_part1_fine_tune":
         models["vgg"] = Vgg19()
         if use_gan:
@@ -89,15 +103,16 @@ def build_models(config: dict, mode: str, use_gan: bool, seed: int = 0,
 
 def load_frozen_torch(models: dict, fomm_checkpoint: str | None = None,
                       audio_checkpoint: str | None = None) -> None:
-    """Weights from the reference's checkpoints: the FOMM file's generator
-    and kp_detector (and discriminator, when the GAN fine-tune has one and
-    the file carries it), the audio file's audio_feature and
-    kp_detector_a."""
+    """Weights from the reference's checkpoints: the FOMM file's
+    kp_detector and generator (where the models hold one) and
+    discriminator (when the GAN fine-tune has one and the file carries
+    it), the audio file's audio_feature and kp_detector_a."""
     from eamm_tpu_torch.compat import load_torch_checkpoint, strip_prefix
     if fomm_checkpoint:
         fomm = load_torch_checkpoint(fomm_checkpoint)
         for name in ("generator", "kp_detector"):
-            models[name].load_state_dict(strip_prefix(fomm[name]))
+            if name in models:
+                models[name].load_state_dict(strip_prefix(fomm[name]))
         if "discriminator" in models and "discriminator" in fomm:
             models["discriminator"].load_reference(
                 strip_prefix(fomm["discriminator"]))
@@ -116,15 +131,62 @@ def _check_options(tp: dict) -> tuple[int, int]:
     return k_accum, spd
 
 
+def _device_f32(x, device) -> torch.Tensor:
+    """A host array on ``device`` in float32 ([0, 1] for uint8 frames)."""
+    t = torch.as_tensor(np.asarray(x)).to(device)
+    return t.float() * np.float32(1.0 / 255.0) if t.dtype == torch.uint8 \
+        else t.float()
+
+
+def visualize_checkpoint(state, batch_host: dict, path: str,
+                         visualizer: Visualizer, device) -> str | None:
+    """The checkpoint's diagnostic image of the first sample of a host
+    batch: kp_detector on its example image (the source) and first
+    driving frame, the generator from the source to that frame, both in
+    training mode with batch statistics (their running ones untouched),
+    the panels written to ``path``.  None, and nothing written, when the
+    state holds no generator or no kp_detector (part2)."""
+    m = state.models
+    if "generator" not in m or "kp_detector" not in m:
+        return None
+    dt = next(m["generator"].parameters()).dtype
+    src = _device_f32(batch_host["example_image"][:1], device).to(dt)
+    drv = _device_f32(batch_host["driving"][:1, 0], device).to(dt)
+    with torch.no_grad(), batch_statistics(m["kp_detector"]) as detector, \
+            batch_statistics(m["generator"]) as generator:
+        kp_s = {k: v for k, v in detector(_nchw(src)).items()
+                if k != "heatmap"}
+        kp_d = {k: v for k, v in detector(_nchw(drv)).items()
+                if k != "heatmap"}
+        aux: dict = {}
+        prediction = generator.decode(
+            _nchw(src), generator.encode_source(_nchw(src)), kp_d, kp_s,
+            aux=aux)
+        deformed = grid_sample(src, resize_bilinear(aux["deformation"],
+                                                    src.shape[1:3]))
+    out = {"prediction": prediction.permute(0, 2, 3, 1),
+           "deformed": deformed,
+           "mask": aux["mask"].permute(0, 2, 3, 1),
+           "sparse_deformed": aux["sparse_deformed"],
+           "kp_source": kp_s, "kp_driving": kp_d}
+    if "occlusion_map" in aux:
+        out["occlusion_map"] = aux["occlusion_map"].permute(0, 2, 3, 1)
+    out = {k: ({n: t.float().cpu().numpy() for n, t in v.items()}
+               if isinstance(v, dict) else v.float().cpu().numpy())
+           for k, v in out.items()}
+    return visualizer.save(path, drv.float().cpu().numpy(),
+                           src.float().cpu().numpy(), out)
+
+
 def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
           max_steps: int | None = None, seed: int = 0,
           vgg_state_dict=None, fomm_checkpoint: str | None = None,
           audio_checkpoint: str | None = None, device="cuda"):
-    """Train in ``mode`` ('train_part1' | 'train_part1_fine_tune') on
-    ``device``; returns the final ``Part1State``."""
-    if mode not in PART1_MODES:
-        raise NotImplementedError(f"mode {mode!r} is not ported yet "
-                                  "(ROADMAP Queue 1)")
+    """Train in ``mode`` ('train_part1' | 'train_part1_fine_tune' |
+    'train_part2') on ``device``; returns the final state
+    (``Part1State`` or ``Part2State``)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
     device = torch.device(device)
     tp = config["train_params"]
     k_accum, spd = _check_options(tp)
@@ -132,7 +194,8 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
     use_gan = (mode == "train_part1_fine_tune"
                and weights.get("discriminator_gan", 0) != 0
                and weights.get("generator_gan", 0) != 0)
-    step_fn = S.make_part1_step(tp)     # refuses grad_accum with GAN
+    step_fn = (S.make_part2_step(tp) if mode == "train_part2"
+               else S.make_part1_step(tp))     # refuses grad_accum with GAN
 
     dataset = build_dataset(config, is_train=True)
     repeated = DatasetRepeater(dataset, tp.get("num_repeats", 1))
@@ -164,14 +227,17 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
     else:
         def make_opt(modules):
             return make_optimizer(modules, lr=lr_audio, **sched)
-    make_disc = None
-    if use_gan:
-        def make_disc(modules):
-            return make_optimizer(modules, lr=float(tp.get(
-                "lr_discriminator", lr_audio)), **sched)
-    state = S.init_part1_state(models, make_opt,
-                               train_generator=mode != "train_part1",
-                               make_disc_optimizer=make_disc)
+    if mode == "train_part2":
+        state = S.init_part2_state(models, make_opt)
+    else:
+        make_disc = None
+        if use_gan:
+            def make_disc(modules):
+                return make_optimizer(modules, lr=float(tp.get(
+                    "lr_discriminator", lr_audio)), **sched)
+        state = S.init_part1_state(models, make_opt,
+                                   train_generator=mode != "train_part1",
+                                   make_disc_optimizer=make_disc)
 
     ckpt = CheckpointManager(os.path.join(log_dir, "checkpoints"))
     if checkpoint:
@@ -193,14 +259,17 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
         pass
 
     logger = MetricsLogger(log_dir)
+    visualizer = Visualizer(**{k: v for k, v in
+                               config.get("visualizer_params", {}).items()
+                               if k in ("kp_size", "draw_border",
+                                        "colormap")})
     checkpoint_freq = tp.get("checkpoint_freq", 1)
     num_epochs = tp.get("num_epochs", 300)
     log_every = max(1, int(tp.get("log_every", 10)))
     start_step = state.step
     total = 0
     pending: list[tuple[int, dict]] = []
-    print("the checkpoint visualization is not ported yet (ROADMAP Queue 1); "
-          "checkpoints are written without it", flush=True)
+    last_host: dict = {}
 
     def flush_metrics():
         # one device -> host copy for the buffered metrics
@@ -214,6 +283,16 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
             logger.log_iter(m)
             logger.write_scalars(step_num, m)
         pending.clear()
+
+    def save(step_num: int):
+        ckpt.save(step_num, state)
+        try:
+            visualize_checkpoint(state, last_host,
+                                 os.path.join(log_dir,
+                                              f"{step_num:08d}-viz.png"),
+                                 visualizer, device)
+        except Exception as e:          # a diagnostic never stops training
+            print(f"visualization failed: {e!r}", flush=True)
 
     preempted = {"sig": None}
     prev_handlers = {}
@@ -230,11 +309,15 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
     def batches(it):
         """Loader batches -> step inputs on the device: K stacked
         micro-batches per step with grad_accum (a short tail is dropped,
-        since a partial mean would change the step size)."""
+        since a partial mean would change the step size).  The first
+        micro-batch of each step stays in ``last_host`` for the
+        visualizer."""
         while True:
             group = list(itertools.islice(it, k_accum))
             if len(group) < k_accum:
                 return
+            last_host.clear()
+            last_host.update(group[0])
             host = group[0] if k_accum == 1 else S.stack_host_batches(group)
             yield S.to_device(host, device)
 
@@ -259,9 +342,10 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
 
                 if crossed(log_every):
                     flush_metrics()
-                if crossed(SAVE_EVERY_STEPS) and epoch % checkpoint_freq == 0:
+                if (crossed(SAVE_EVERY_STEPS[mode])
+                        and epoch % checkpoint_freq == 0):
                     flush_metrics()
-                    ckpt.save(step_num, state)
+                    save(step_num)
                 stop = max_steps is not None and total >= max_steps
                 if preempted["sig"] is not None:
                     print(f"signal {preempted['sig']}: emergency "
@@ -270,12 +354,12 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
                 if stop:
                     flush_metrics()
                     logger.log_epoch(epoch)
-                    ckpt.save(step_num, state)
+                    save(step_num)
                     return state
             flush_metrics()
             logger.log_epoch(epoch)
             if eval_loader is not None:
-                _eval_epoch(state, tp, eval_loader, device, logger,
+                _eval_epoch(state, mode, tp, eval_loader, device, logger,
                             start_step + total)
         flush_metrics()
         ckpt.save(start_step + total, state)
@@ -285,9 +369,11 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
             signal.signal(sig, handler)
 
 
-def _eval_epoch(state, tp: dict, eval_loader, device, logger, step: int):
-    """The held-out loss: the part1 loss on plain batches, no update and
+def _eval_epoch(state, mode: str, tp: dict, eval_loader, device, logger,
+                step: int):
+    """The held-out loss: the mode's loss on plain batches, no update and
     no BatchNorm statistics written."""
+    loss = S.part2_loss if mode == "train_part2" else S.part1_loss
     eval_tp = dict(tp, grad_accum=1)
     saved = {n: {k: v.clone() for k, v in state.models[n].state_dict().items()}
              for n in state.trainable}
@@ -295,7 +381,7 @@ def _eval_epoch(state, tp: dict, eval_loader, device, logger, step: int):
     with torch.no_grad():
         for host in eval_loader:
             batch = decode_and_augment(S.to_device(host, device))
-            _, metrics, _ = S.part1_loss(state, eval_tp, batch)
+            _, metrics, _ = loss(state, eval_tp, batch)
             metrics["total"] = sum(metrics.values())
             values.append({k: float(v) for k, v in metrics.items()})
     for n, sd in saved.items():

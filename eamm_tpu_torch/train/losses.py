@@ -1,13 +1,14 @@
-"""Part1 and fine-tune losses: keypoint mimic, the perceptual pyramid,
-LSGAN and feature matching.
+"""Training losses: keypoint mimic (part1), the emotion residual (part2),
+the perceptual pyramid, LSGAN and feature matching.
 
-Counterpart of ``eamm_tpu/train/losses.py`` (part1's subset; part2's
-emotion losses wait for part2).  Images are NHWC, as in JAX; the VGG and
-discriminator outputs may be in any layout, since every term is a mean.
+Counterpart of ``eamm_tpu/train/losses.py``.  Images are NHWC, as in JAX;
+the VGG and discriminator outputs may be in any layout, since every term
+is a mean.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from eamm_tpu_torch.ops.antialias import antialias_downsample
 
@@ -34,6 +35,40 @@ def kp_mimic_loss(kp_vis: dict, kp_audio: dict, weight: float) -> dict:
         "loss_jacobian": weight * mean_abs(kp_vis["jacobian"],
                                            kp_audio["jacobian"]),
     }
+
+
+# keypoints that take part2's emotion displacement, in the order of the
+# four-keypoint heads' output (inference's linear_3 moves 1, 4 and 6)
+EMO_KP_INDICES = (1, 4, 6, 8)
+
+
+def emotion_residual_loss(kp_vis: dict, kp_audio: dict, kp_emo: dict,
+                          logits: torch.Tensor, labels: torch.Tensor,
+                          weight: float, ten_kp: bool,
+                          classify: bool = True) -> dict:
+    """Part2's residual |kp_vis - (kp_audio + kp_emo)| (value target
+    detached) on all ten keypoints (``ten_kp``) or on EMO_KP_INDICES, each
+    of those a mean of its own; and the cross-entropy of the emotion
+    ``logits`` [B*T, 8] against integer ``labels`` [B*T], its mean over
+    B*T (0 unless ``classify``)."""
+    if ten_kp:
+        loss_value = mean_abs(kp_vis["value"].detach(),
+                              kp_audio["value"] + kp_emo["value"]) * weight
+        loss_jac = mean_abs(kp_vis["jacobian"],
+                            kp_audio["jacobian"] + kp_emo["jacobian"]) * weight
+    else:
+        loss_value = loss_jac = 0.0
+        for j, i in enumerate(EMO_KP_INDICES):
+            loss_value = loss_value + mean_abs(
+                kp_vis["value"][:, i].detach(),
+                kp_audio["value"][:, i] + kp_emo["value"][:, j]) * weight
+            loss_jac = loss_jac + mean_abs(
+                kp_vis["jacobian"][:, i],
+                kp_audio["jacobian"][:, i] + kp_emo["jacobian"][:, j]) * weight
+    out = {"loss_value": loss_value, "loss_jacobian": loss_jac}
+    out["loss_classify"] = (F.cross_entropy(logits, labels.long())
+                            if classify else logits.new_zeros(()))
+    return out
 
 
 def perceptual_loss(vgg_apply, pyramid_real: dict, pyramid_generated: dict,

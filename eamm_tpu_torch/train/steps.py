@@ -1,25 +1,31 @@
-"""Part1 training steps: ``train_part1`` and ``train_part1_fine_tune``.
+"""Training steps: ``train_part1``, ``train_part1_fine_tune`` and
+``train_part2``.
 
-Counterpart of ``eamm_tpu/train/steps.py`` (part1's functions; part2
-waits).  A state holds the models, which of them train, the optimizer and
-the step count; BatchNorm statistics live in the modules and are updated
-in place, as JAX's returned ``batch_stats`` are:
+Counterpart of ``eamm_tpu/train/steps.py``.  A state holds the models,
+which of them train, the optimizer and the step count; BatchNorm
+statistics live in the modules and are updated in place, as JAX's
+returned ``batch_stats`` are:
 
 - part1: audio_feature (ATNet) and kp_detector_a train against the frozen
   FOMM kp_detector with the keypoint-mimic losses;
 - fine-tune: the generator trains too, under the VGG19 perceptual pyramid
   on every 4th frame (``generator: 'audio'`` or ``'visual'``), and with
   both GAN weights non-zero under LSGAN and feature matching against a
-  discriminator that trains in its own step right after.
+  discriminator that trains in its own step right after;
+- part2: emo_detector (EmotionK, or EmotionMap for a ``map`` type) alone
+  trains, on the augmented ``transformed_driving`` frames and the frozen
+  audio keypoints, to make up the residual between the frozen FOMM
+  detector's keypoints on the clean frames and the audio ones; its
+  BatchNorm statistics move, the frozen modules run under ``no_grad``.
 
 What the modules see, as in JAX's ``train=True`` applies:
 - audio_feature and the generator normalize with batch statistics and
   update their running statistics; ``decode`` starts from the statistics
   that ``encode_source`` has just updated (the two calls run in that
   order);
-- the frozen kp_detector normalizes with batch statistics and leaves its
-  running statistics as they are (``batch_statistics``); its parameters
-  take no gradient;
+- the frozen kp_detector (and in part2 ATNet and kp_detector_a)
+  normalizes with batch statistics and leaves its running statistics as
+  they are (``batch_statistics``); its parameters take no gradient;
 - the discriminator's power iteration reads the stored ``u``; only its
   own step stores the next one.
 
@@ -41,7 +47,9 @@ from typing import Callable
 import torch
 import torch.nn as nn
 
+from eamm_tpu_torch.ops import tps as T
 from eamm_tpu_torch.ops.augment import decode_and_augment
+from eamm_tpu_torch.ops.motion import inv2x2
 from eamm_tpu_torch.train import losses as L
 from eamm_tpu_torch.train.optim import ScheduledAdam
 
@@ -57,6 +65,11 @@ class Part1State:
     optimizer: ScheduledAdam
     step: int = 0
     disc_optimizer: ScheduledAdam | None = None
+
+
+class Part2State(Part1State):
+    """models: {'kp_detector', 'audio_feature', 'kp_detector_a',
+    'emo_detector'}; ``trainable`` is ('emo_detector',)."""
 
 
 def _fold(x: torch.Tensor) -> torch.Tensor:
@@ -229,13 +242,17 @@ def part1_loss(state: Part1State, train_params: dict, batch: dict):
 
 
 def _metrics_f32(metrics: dict) -> dict:
-    return {k: v.detach().float() for k, v in metrics.items()}
+    """Detached metrics in float32 at least (bfloat16 ones widened,
+    float64 ones kept)."""
+    return {k: v.detach().to(torch.promote_types(v.dtype, torch.float32))
+            for k, v in metrics.items()}
 
 
-def part1_grads(state: Part1State, train_params: dict, batch: dict):
-    """Gradients of the part1 loss into the trainable parameters' ``.grad``
-    (zeroed first) -> (metrics, gen_out).  With ``grad_accum`` K > 1 the
-    batch's leaves are stacked [K, B_micro, ...]: the gradients are the
+def _accumulate_grads(state, train_params: dict, batch: dict, loss_fn):
+    """Gradients of ``loss_fn(state, train_params, decoded batch) ->
+    (total, metrics, extra)`` into the trainable parameters' ``.grad``
+    (zeroed first) -> (metrics, the last extra).  With ``grad_accum`` K > 1
+    the batch's leaves are stacked [K, B_micro, ...]: the gradients are the
     mean over the K micro-batches, each of which starts from the BatchNorm
     statistics the previous one left, and the metrics are their means."""
     state.optimizer.zero_grad()
@@ -243,14 +260,20 @@ def part1_grads(state: Part1State, train_params: dict, batch: dict):
     micro = ([{n: v[i] for n, v in batch.items()} for i in range(k)]
              if k > 1 else [batch])
     sums: dict = {}
-    gen_out = None
+    extra = None
     for mb in micro:
-        total, metrics, gen_out = part1_loss(state, train_params,
-                                             decode_and_augment(mb))
+        total, metrics, extra = loss_fn(state, train_params,
+                                        decode_and_augment(mb))
         (total / k).backward()
         for name, v in _metrics_f32(metrics).items():
             sums[name] = sums.get(name, 0.0) + v
-    return {name: v / k for name, v in sums.items()}, gen_out
+    return {name: v / k for name, v in sums.items()}, extra
+
+
+def part1_grads(state: Part1State, train_params: dict, batch: dict):
+    """Gradients of the part1 loss into the trainable parameters' ``.grad``
+    -> (metrics, gen_out), with ``grad_accum`` as ``_accumulate_grads``."""
+    return _accumulate_grads(state, train_params, batch, part1_loss)
 
 
 def make_part1_step(train_params: dict) -> Callable:
@@ -317,6 +340,132 @@ def discriminator_step(state: Part1State, train_params: dict, batch: dict,
     metrics = discriminator_grads(state, train_params, batch, generated)
     state.disc_optimizer.step()
     return metrics
+
+
+def equivariance_losses(kp_detector: nn.Module, frames: torch.Tensor,
+                        kp_driving: dict, tps, value_weight: float,
+                        jacobian_weight: float) -> dict:
+    """Equivariance of the detector under the random warp ``tps``
+    (``ops/tps.TpsParams``, from ``sample_tps`` over
+    ``train_params['transform_params']``): the NHWC ``frames`` warped
+    (reflection padding), their keypoints detected with batch statistics,
+    then kp_driving == warp(kp_warped) (value) and J_d^-1 J_warp J_warped
+    == I (jacobian), each an L1 mean times its weight; a zero weight
+    leaves its term out.  The shipped configs weight both 0 and no step
+    calls it."""
+    warped = T.transform_frame(tps, frames)
+    with batch_statistics(kp_detector) as detector:
+        kp_t = detector(_nchw(warped))
+    out = {}
+    if value_weight:
+        rewarped = T.warp_coordinates(tps, kp_t["value"])
+        out["equivariance_value"] = value_weight * torch.mean(
+            torch.abs(kp_driving["value"] - rewarped))
+    if jacobian_weight:
+        jac_t = T.warp_jacobian(tps, kp_t["value"]) @ kp_t["jacobian"]
+        value = inv2x2(kp_driving["jacobian"]) @ jac_t
+        eye = torch.eye(2, dtype=value.dtype, device=value.device)
+        out["equivariance_jacobian"] = jacobian_weight * torch.mean(
+            torch.abs(eye - value))
+    return out
+
+
+# train_params['type'] -> the emotion head the step trains
+HEAD_BY_TYPE = {"linear_4": "linear", "linear_4_new": "linear_4",
+                "linear_10": "linear_10", "linear_np_4": "linear_np_4",
+                "linear_np_10": "linear_np_10", "map": "map",
+                "map_4": "map_4"}
+PART2_FROZEN = ("kp_detector", "audio_feature", "kp_detector_a")
+
+
+def init_part2_state(models: dict, make_optimizer: Callable,
+                     part1_state: Part1State | None = None) -> Part2State:
+    """The part2 state over ``models``: emo_detector trains, the other
+    three are frozen (taken, weights and statistics, from ``part1_state``
+    when given); ``make_optimizer`` takes {'emo_detector': module}."""
+    if part1_state is not None:
+        for name in PART2_FROZEN:
+            models[name].load_state_dict(
+                part1_state.models[name].state_dict())
+    for name, m in models.items():
+        m.requires_grad_(name == "emo_detector")
+    return Part2State(models, ("emo_detector",),
+                      make_optimizer({"emo_detector": models["emo_detector"]}))
+
+
+def part2_loss(state: Part2State, train_params: dict, batch: dict):
+    """(total, metrics, None) of one decoded MEAD batch (``driving`` and
+    ``transformed_driving`` [B,T,H,W,3], ``example_image``,
+    ``driving_audio``, ``driving_pose``, ``emotion`` [B]): the frozen
+    detector on the clean frames and the audio keypoints under
+    ``no_grad`` with batch statistics, emo_detector on the transformed
+    frames from the audio keypoints, ``emotion_residual_loss``, and with
+    ``smooth`` the second difference over time of the composed (audio +
+    emotion) keypoints, neighbours detached.  Updates emo_detector's
+    BatchNorm statistics."""
+    tp = train_params
+    etype = tp.get("type", "linear_4")
+    head, ten_kp = HEAD_BY_TYPE[etype], "10" in etype
+    weight = tp["loss_weights"]["emo"]
+    m = state.models
+    batch = _param_dtype(batch, m["emo_detector"])
+    device = batch["driving"].device
+    B, T = batch["driving"].shape[:2]
+    labels = batch["emotion"].long().repeat_interleave(T)
+    with _autocast(device, compute_dtype(tp)):
+        with torch.no_grad():
+            with batch_statistics(m["kp_detector"]) as kp_detector:
+                kp_driving = kp_detector(_nchw(_fold(batch["driving"])))
+            with batch_statistics(m["audio_feature"]) as audio_feature:
+                deco = audio_feature(_nchw(batch["example_image"]),
+                                     batch["driving_audio"],
+                                     batch["driving_pose"])
+            with batch_statistics(m["kp_detector_a"]) as kp_detector_a:
+                kp_audio = kp_detector_a(_fold(deco))
+        m["emo_detector"].train()
+        kp_emo, logits = m["emo_detector"](
+            _nchw(_fold(batch["transformed_driving"])), kp_audio["value"],
+            kp_audio["jacobian"], head=head)
+        metrics = L.emotion_residual_loss(
+            kp_driving, kp_audio, kp_emo, logits, labels, weight, ten_kp,
+            bool(tp.get("classify", True)))
+        total = sum(metrics.values())
+        if tp.get("smooth", False):
+            idx = range(10) if ten_kp else L.EMO_KP_INDICES
+
+            def composed(key):
+                a = kp_audio[key].clone()
+                a[:, list(idx)] += kp_emo[key]
+                return a.reshape(B, T, *a.shape[1:]).transpose(0, 1)
+
+            def second_diff(x):
+                return torch.mean(torch.abs(
+                    x[2:] + x[:-2].detach() - 2 * x[1:-1].detach()))
+
+            metrics["loss_smooth"] = (second_diff(composed("value"))
+                                      + second_diff(composed("jacobian"))
+                                      ) * weight * 100.0 / T
+            total = total + metrics["loss_smooth"]
+    return total, metrics, None
+
+
+def part2_grads(state: Part2State, train_params: dict, batch: dict) -> dict:
+    """Gradients of the part2 loss into emo_detector's ``.grad`` ->
+    metrics, with ``grad_accum`` as ``_accumulate_grads``."""
+    return _accumulate_grads(state, train_params, batch, part2_loss)[0]
+
+
+def make_part2_step(train_params: dict) -> Callable:
+    """The part2 step ``(state, batch) -> metrics``: gradients, one
+    optimizer update; ``metrics['total']`` sums the terms."""
+    def step(state: Part2State, batch: dict) -> dict:
+        metrics = part2_grads(state, train_params, batch)
+        state.optimizer.step()
+        metrics["total"] = sum(metrics.values())
+        state.step += 1
+        return metrics
+
+    return step
 
 
 def make_multi_step(step_fn: Callable) -> Callable:

@@ -1,1 +1,2 @@
-"""Host-side helpers of the port."""
+"""Host-side helpers of the port, and the evaluation metrics
+(``metrics``)."""

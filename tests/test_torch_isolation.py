@@ -47,7 +47,12 @@ ENTRY_MODULES = ["eamm_tpu_torch.serve", "eamm_tpu_torch.serve_http",
                  "eamm_tpu_torch.models.discriminator",
                  "eamm_tpu_torch.ops.augment",
                  "eamm_tpu_torch.data.datasets",
-                 "eamm_tpu_torch.data.packed"]
+                 "eamm_tpu_torch.data.packed",
+                 # part2 and the evaluation modes
+                 "eamm_tpu_torch.ops.tps", "eamm_tpu_torch.ops.warp",
+                 "eamm_tpu_torch.train.visualizer",
+                 "eamm_tpu_torch.utils.metrics",
+                 "eamm_tpu_torch.infer.animate"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -99,15 +104,20 @@ def test_chip_smoke_configs_are_the_repos():
 
 
 def test_chip_smoke_train_params_are_the_yamls():
-    """Phase 8's training parameters are configs/train_part1*.yaml's (the
-    card's machine may lack PyYAML), and its model widths the YAMLs'."""
+    """Phase 8's training parameters are configs/train_part1*.yaml's and
+    phase 9's configs/train_part2.yaml's train_params and augmentation
+    (the card's machine may lack PyYAML), and its model widths the
+    YAMLs'."""
     from eamm_tpu_torch.config import load_config
-    for mode, params in chip_smoke.TRAIN_PARAMS.items():
+    for mode, params in {**chip_smoke.TRAIN_PARAMS,
+                         "train_part2": chip_smoke.PART2_PARAMS}.items():
         config = load_config(os.path.join(REPO_ROOT, "configs",
                                           f"{mode}.yaml"))
         assert params == config["train_params"], mode
         assert chip_smoke.FULL_CONFIG["model_params"] == \
             config["model_params"], mode
+    assert chip_smoke.PART2_AUGMENTATION == config["dataset_params"][
+        "augmentation_params"]
 
 
 def test_chip_smoke_cpu_vs_device_on_cpu(cpu_vs_cpu):

@@ -89,11 +89,13 @@ def test_grid_sample(padding_mode, align_corners):
 
 
 def test_grid_sample_rejects_bad_shapes():
+    """A grid batch the image batch does not divide, and a padding mode
+    that neither package has."""
     with pytest.raises(ValueError):
         warp.grid_sample(torch.zeros(2, 4, 4, 3), torch.zeros(3, 4, 4, 2))
     with pytest.raises(ValueError):
         warp.grid_sample(torch.zeros(1, 4, 4, 3), torch.zeros(1, 4, 4, 2),
-                         padding_mode="reflection")
+                         padding_mode="wrap")
 
 
 def test_resize_and_pooling():

@@ -4,7 +4,7 @@ synthetic LRW tree (the session's ``lrw_root``), port only.
 Two part1 steps through the CLI and a resume from the latest checkpoint;
 the GAN fine-tune with two steps per call; grad_accum with the device
 augmentation; the SIGTERM emergency checkpoint; the option combinations
-and modes the CLI refuses.  TINY_CONFIG widths, batch 2.
+and the inputs the CLI refuses.  TINY_CONFIG widths, batch 2.
 """
 import copy
 import json
@@ -12,6 +12,8 @@ import os
 import shutil
 import signal
 
+import imageio.v2 as imageio
+import numpy as np
 import pytest
 import torch
 
@@ -72,10 +74,10 @@ def _tensors(module) -> dict:
 
 
 def test_cli_part1_two_steps_then_resume(lrw_root, tmp_path):
-    """Two steps: finite losses logged, a checkpoint at step 2, the
-    trainable models changed, the frozen detector (weights and running
-    statistics) bit for bit as drawn; then ``--checkpoint latest``
-    continues the same run from step 2."""
+    """Two steps: finite losses logged, a checkpoint at step 2 with the
+    visualizer's image, the trainable models changed, the frozen detector
+    (weights and running statistics) bit for bit as drawn; then
+    ``--checkpoint latest`` continues the same run from step 2."""
     cfg = _config(lrw_root)
     path, log = _write(cfg, tmp_path), str(tmp_path / "log")
     state = main(["--config", path, "--mode", "train_part1", "--cpu",
@@ -87,6 +89,9 @@ def test_cli_part1_two_steps_then_resume(lrw_root, tmp_path):
     steps, values = scalars["train/loss_value"]
     assert list(steps) == [1, 2] and all(v == v for v in values)
     assert CheckpointManager(os.path.join(run, "checkpoints")).steps() == [2]
+    image = np.asarray(imageio.imread(os.path.join(run, "00000002-viz.png")))
+    assert image.shape[0] >= 256 and image.shape[2] == 3
+    assert image.std() > 10                     # the visualizer's, not blank
     drawn = build_models(cfg, "train_part1", False, 0, "cpu")
     for name, m in drawn.items():
         same = all(torch.equal(v, state.models[name].state_dict()[k])
@@ -176,6 +181,12 @@ def test_grad_accum_with_steps_per_dispatch_rejected(lrw_root, tmp_path):
 
 @pytest.mark.parametrize("mode", ["train_part2", "reconstruction"])
 def test_unported_modes_exit(lrw_root, tmp_path, mode):
+    """Both modes are ported; on this LRW config, with no checkpoint, each
+    exits before any work and says what it lacks: part2 trains on MEAD's
+    emotion labels, reconstruction needs the FOMM checkpoint."""
     path = _write(_config(lrw_root), tmp_path)
-    with pytest.raises(SystemExit, match="not ported yet"):
-        main(["--config", path, "--mode", mode, "--cpu"])
+    need = {"train_part2": "trains on MEAD",
+            "reconstruction": "requires --fomm_checkpoint"}[mode]
+    with pytest.raises(SystemExit, match=need):
+        main(["--config", path, "--mode", mode, "--cpu",
+              "--log_dir", str(tmp_path / "log")])
