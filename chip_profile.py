@@ -46,9 +46,20 @@ so the render runs the emotion heads per timestep but not the trunk):
    its deterministic ones: the largest |difference| between the two runs
    of each output.
 
+7. ``step_spread``: the TINY ``train_part1_fine_tune`` gradient that
+   ``chip_smoke.py``'s phase 8 holds to the CPU's float64 step
+   (``cpu_vs_card_step``'s inputs), taken on the CPU in float32 on each of
+   ``FLOAT32_THREADS`` and on the card six times, then once with each
+   planted fault: per card step its worst leaf against the bound that
+   phase 8 uses (three times the largest error of the four CPU float32
+   steps) and against the bound of one CPU float32 step on the host's
+   default threads, and the leaves whose CPU float32 error moves most
+   with the thread count.
+
 Each prints JSON lines, naming the render.  ``python3 chip_profile.py
-conv_forms export`` runs only the phases named.  Without a CUDA device it
-exits non-zero before printing any result.
+conv_forms export`` runs only the phases named (``step_spread`` alone
+builds no pipeline).  Without a CUDA device it exits non-zero before
+printing any result.
 """
 from __future__ import annotations
 
@@ -58,8 +69,10 @@ import time
 
 import torch
 
-from chip_smoke import (EMOTION_FRAMES, FULL_CONFIG, card_line, clip_inputs,
-                        emotion_clip, graphed, in_turns)
+from chip_smoke import (EMOTION_FRAMES, FAULTS, FLOAT32_THREADS, FULL_CONFIG,
+                        card_line, clip_inputs, emotion_clip, graphed,
+                        in_turns, on_threads, planted_fault, step_comparison,
+                        step_gradients, step_inputs)
 from eamm_tpu_torch.infer import EammPipeline, PipelineOptions
 from eamm_tpu_torch.models import KPDetector, KPDetectorA
 from eamm_tpu_torch.models import kp_detector as kpd
@@ -294,6 +307,53 @@ def determinism(pipe: EammPipeline) -> dict:
     return out
 
 
+def step_spread(repeats: int = 6, spread_leaves: int = 8) -> dict:
+    mode = "train_part1_fine_tune"
+    cfg, batch = step_inputs(mode=mode)
+    ref = step_gradients(cfg, batch, 0, "cpu", torch.float64, mode)
+    default = torch.get_num_threads()
+    threads = sorted({*FLOAT32_THREADS, default})
+    cpu32 = {n: on_threads(n, lambda: step_gradients(
+        cfg, batch, 0, "cpu", torch.float32, mode)) for n in threads}
+    four, grad_errors, bound = step_comparison(
+        ref, [cpu32[n] for n in FLOAT32_THREADS])
+    one, _, bound_one = step_comparison(ref, cpu32[default])
+    cpu_err = {n: grad_errors(side) for n, side in cpu32.items()}
+
+    def card_step():
+        return step_gradients(cfg, batch, 0, "cuda", torch.float32, mode)
+
+    def reading(side: dict) -> dict:
+        return {name: {k: r[k] for k in ("grad_worst_leaf", "grad_worst_over",
+                                         "leaves_over", "refused")}
+                for name, r in (("four_orders", four(side)),
+                                (f"one_order_{default}_threads", one(side)))}
+
+    cards = []
+    for _ in range(repeats):
+        side = card_step()
+        err = grad_errors(side)
+        worst = max(err, key=lambda k: err[k] / bound[k])
+        cards.append({**reading(side), "worst_leaf": worst,
+                      "err": err[worst], "bound": bound[worst],
+                      "bound_one_order": bound_one[worst]})
+    faults = {}
+    for name, (entry, scale, must_refuse) in FAULTS.items():
+        with planted_fault(entry, scale):
+            faults[name] = {**reading(card_step()),
+                            "must_refuse": must_refuse}
+
+    def moves(k):
+        errs = [e[k] for e in cpu_err.values()]
+        return max(errs) / max(min(errs), 1e-12)
+
+    return {"threads": threads, "card": cards, "faults": faults,
+            "cpu_float32_err_by_threads": {
+                k: {str(n): cpu_err[n][k] for n in threads}
+                for k in sorted(ref["grads"], key=moves,
+                                reverse=True)[:spread_leaves]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; nothing was run", file=sys.stderr)
@@ -302,7 +362,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False       # as chip_smoke.py runs it
     torch.backends.cuda.matmul.allow_tf32 = False
     phases = set(sys.argv[1:]) or {"stages", "host_copy", "profile",
-                                   "conv_forms", "export", "determinism"}
+                                   "conv_forms", "export", "determinism",
+                                   "step_spread"}
+    if "step_spread" in phases:
+        print(json.dumps({"phase": "step_spread", **step_spread()}),
+              flush=True)
+        if phases == {"step_spread"}:
+            print(card_line(), flush=True)
+            return 0
     pipe = EammPipeline.from_random(FULL_CONFIG, 0, PipelineOptions(
         frame_chunk=32, time_bucket=32, compute_dtype=torch.bfloat16))
     video = emotion_clip(EMOTION_FRAMES, 7)

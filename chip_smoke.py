@@ -140,7 +140,8 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    discriminator's) at TINY_CONFIG widths on the CPU in float64, on the
    CPU in float32 and on the card in float32 (losses within rtol 1e-4,
    BatchNorm statistics within 1e-5, each gradient leaf within 1e-3
-   relative L2 or three times the CPU float32 step's own error on it);
+   relative L2 or three times the largest error of the CPU's float32
+   steps on 1, 2, 4 and 8 threads on it);
    then ``eamm-torch-run``'s ``main`` on a seeded synthetic LRW tree
    (packed frames) at FULL_CONFIG widths and the YAMLs' batches
    (``train_part1`` 8 x 16 frames; ``train_part1_fine_tune`` 6 x 16,
@@ -178,6 +179,26 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    the card (K1-K3 must launch) and on the CPU: the card's metrics
    finite and within EVAL_TOL of the CPU's, the uint8 animations within
    the render's per-frame bounds.
+10. the ``jaco_net: gan`` A2FD (after phase 9): ATNet decoding with the
+   StyleGAN2 synthesis network (``models/stylegan2.py``), drawn from seed
+   0, beside phase 5's other models at FULL_CONFIG (``with_gan_atnet``):
+   the TINY gan pipeline rendered on the CPU and on the card as phase 4;
+   neutral and emotional 4 s and 10 s
+   ``render_uint8`` requests in bfloat16, each beside the same request on
+   phase 5's cnn pipeline (wall, fps, peak memory; K1-K3 must launch),
+   bf16 against f32 on the 4 s clips within phase 5's bounds, a 4 s
+   float32 stream in chunks of 64 within one count of the whole clip;
+   ATNet's share of the neutral 10 s keypoint stage, cnn and gan; the gan
+   models as the reference's files (the audio file with the deconv
+   decoder the reference also holds), preflighted and loaded back, one
+   request through a ``RenderServer`` bitwise the call made again; one
+   gan artifact program (batch 1, bucket 32) bitwise its live call with
+   cuDNN deterministic; ``eamm-torch-run --mode train_part1`` with
+   ``jaco_net: gan`` at the YAML's 8 x 16 batch, 2 steps and one resumed
+   (K3 and K3b must launch); the native PNG decoder (built or not, a
+   seeded batch against imageio); one TINY gan part1 gradient on the card
+   against the CPU's float64 as phase 8's, K3b's Jacobian-map gradient
+   x1.1 refused.
 6. kernel times at the main-path shapes: the kernel, its plain version,
    one PyTorch library call computing the same function where there is
    one, and the bound (the larger of bytes at 3.35 TB/s and operations at
@@ -202,16 +223,19 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    The plain versions are timed eager.  The backward kernels at the
    fine-tune step's shapes in float32 with the gradients the training
    path asks for (K1b both, K2b the grid's), beside
-   ``aten.grid_sampler_2d_backward`` for the warps; their bound counts
-   the image gradient's float32 accumulator as zeroed, read and written
-   once per element; K3b also at part2's ``map_4`` shape (256 images of
-   4 rows) with its plain version and bound (``timing.map_4``).
+   ``aten.grid_sampler_2d_backward`` for the warps; their bound reads
+   each input and writes each gradient once (``timing.bound_accumulator``
+   also counts the image gradient's float32 accumulator as zeroed, read
+   and written once per element); K3b also at part2's ``map_4`` shape
+   (256 images of 4 rows) with its plain version and bound
+   (``timing.map_4``).
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line
 (with the path whose launches each row counts, the launches on every
 request by path, on every serving route, per training step of each
-mode, per part2 step of each run and per evaluation mode and visualizer
-call; the backward rows count the fine-tune run), and last
+mode, per part2 step of each run, per evaluation mode and visualizer
+call and on phase 10's gan paths; the backward rows count the fine-tune
+run), and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -236,8 +260,10 @@ from eamm_tpu_torch import config as cfg
 from eamm_tpu_torch import kernels
 from eamm_tpu_torch.infer import EammPipeline, PipelineOptions
 from eamm_tpu_torch.infer.pipeline import reset_parameters
+from eamm_tpu_torch.models.audio import deconv_decoder
 from eamm_tpu_torch.ops.colorspace import yuv420_to_rgb
-from eamm_tpu_torch.ops.mfcc import num_windows_for_samples
+from eamm_tpu_torch.ops.mfcc import (audio_to_mfcc_windows,
+                                     num_windows_for_samples)
 from eamm_tpu_torch.ops import kp_expectation as kpx
 from eamm_tpu_torch.ops import warp_cuda
 
@@ -720,18 +746,20 @@ def kernel_fd(fwd, inputs: tuple, step: float = 1e-3,
 
 # ---------------------------------------------------------------- phase 4
 
-def cpu_vs_device(device: str = "cuda", seed: int = 0) -> dict:
+def cpu_vs_device(device: str = "cuda", seed: int = 0,
+                  tune=lambda pipe: pipe) -> dict:
     """The same seeded pipeline at EMOTION_TINY_CONFIG (TINY_CONFIG's four
-    render models, drawn before the emotion model) built on the CPU and on
+    render models, drawn before the emotion model; ``tune(pipeline)`` may
+    change it, as ``with_gan_atnet`` does) built on the CPU and on
     ``device``; the same 1 s clip rendered on both, neutral and emotional
     with 5 emotion frames -> {'neutral', 'emotional'} results; raises
     unless each render's per-frame mean |difference| has max < 1e-2 and
     mean < 3e-3."""
     opts = dict(frame_chunk=8, time_bucket=8)
-    cpu = EammPipeline.from_random(EMOTION_TINY_CONFIG, seed,
-                                   PipelineOptions(device="cpu", **opts))
-    dev = EammPipeline.from_random(EMOTION_TINY_CONFIG, seed,
-                                   PipelineOptions(device=device, **opts))
+    cpu = tune(EammPipeline.from_random(
+        EMOTION_TINY_CONFIG, seed, PipelineOptions(device="cpu", **opts)))
+    dev = tune(EammPipeline.from_random(
+        EMOTION_TINY_CONFIG, seed, PipelineOptions(device=device, **opts)))
     src, wav, pose = clip_inputs(1.0, seed)
     results = {}
     for name, video in (("neutral", None),
@@ -894,7 +922,7 @@ def emotional_path(pipe: EammPipeline) -> dict:
 
 def with_options(pipe: EammPipeline, **changes) -> EammPipeline:
     """``pipe``'s models under its options with ``changes``."""
-    return EammPipeline(FULL_CONFIG, models=pipe.models,
+    return EammPipeline(pipe.config, models=pipe.models,
                         options=dataclasses.replace(pipe.options, **changes))
 
 
@@ -1205,10 +1233,19 @@ def save_checkpoints(models: dict, directory: str) -> dict:
     """The five models as the reference's three ``.pth.tar`` files, as the
     reference trainer leaves them: the FOMM file's generator under
     DataParallel's ``module.`` prefix, with an optimizer's state and an
-    epoch number; the emotion file with Emotion_k's ``final_4`` stack ->
+    epoch number; the emotion file with Emotion_k's ``final_4`` stack; a
+    gan ATNet's with the deconv decoder the reference also holds ->
     {'fomm', 'audio', 'emo'} paths."""
     sd = {k: {n: t.cpu() for n, t in m.state_dict().items()}
           for k, m in models.items()}
+    if models["audio_feature"].jaco_net == "gan":
+        # the reference's AT_net builds the deconv decoder whatever
+        # jaco_net says, so its gan files hold decon.* too (seeded here)
+        decon = deconv_decoder()
+        reset_parameters(decon, torch.Generator().manual_seed(1))
+        sd["audio_feature"] = {**{f"decon.{k}": v for k, v
+                                  in decon.state_dict().items()},
+                               **sd["audio_feature"]}
     emo = dict(sd["emo_detector"])
     for i in (0, 3):
         for p in ("weight", "bias"):
@@ -1231,17 +1268,17 @@ def save_checkpoints(models: dict, directory: str) -> dict:
 
 
 def checkpoint_path(pipe: EammPipeline, directory: str,
-                    device: str = "cuda") -> dict:
+                    options: PipelineOptions) -> tuple[dict, EammPipeline]:
     """Save ``pipe``'s models as the reference's checkpoints, check each
     with the preflight (ok, nothing fatal), load them back through
-    ``from_torch_checkpoints`` and hold every state_dict to the original's
-    bit for bit -> the paths."""
+    ``from_torch_checkpoints`` at ``pipe``'s config under ``options`` and
+    hold every state_dict to the original's bit for bit -> (the paths,
+    the loaded pipeline)."""
     from eamm_tpu_torch.compat.preflight import check_state_dict
     paths = save_checkpoints(pipe.models, directory)
     reports = {name: check_state_dict(path) for name, path in paths.items()}
     loaded = EammPipeline.from_torch_checkpoints(
-        FULL_CONFIG, paths["fomm"], paths["audio"], paths["emo"],
-        PipelineOptions(device=device))
+        pipe.config, paths["fomm"], paths["audio"], paths["emo"], options)
     tensors = 0
     for name, model in pipe.models.items():
         ref, got = model.state_dict(), loaded.models[name].state_dict()
@@ -1257,7 +1294,7 @@ def checkpoint_path(pipe: EammPipeline, directory: str,
          ignored_keys=loaded.ignored_keys, tensors_equal=tensors)
     if not all(r.ok and not r.fatal for r in reports.values()):
         raise AssertionError(f"preflight: {[str(r) for r in reports.values()]}")
-    return paths
+    return paths, loaded
 
 
 class Recorder:
@@ -1711,7 +1748,7 @@ def serving_phase(pipe: EammPipeline, device: str = "cuda") -> dict:
     have = {name: importable(name) for name in ("yaml", "imageio")}
     emit("optional_imports", **have)
     with tempfile.TemporaryDirectory() as d:
-        paths = checkpoint_path(pipe, d, device)
+        paths, _ = checkpoint_path(pipe, d, PipelineOptions(device=device))
         paths["dir"] = d
         if have["yaml"]:
             import yaml
@@ -2055,6 +2092,9 @@ MODE_KERNELS = {"train_part1": ("kp_expectation", "kp_expectation_backward"),
 # the CPU-against-card step: losses rtol, gradient relative L2 per leaf,
 # BatchNorm statistics (the CPU tests' bounds)
 STEP_TOL = {"loss_rtol": 1e-4, "grad_rel_l2": 1e-3, "stats": 1e-5}
+# torch's intra-op threads of the CPU float32 steps a CPU-against-card
+# gradient takes its float32 floor from: four summation orders
+FLOAT32_THREADS = (1, 2, 4, 8)
 
 
 def write_lrw_tree(root: str, clips: int = TRAIN_CLIPS, frames: int = 30,
@@ -2127,22 +2167,25 @@ def timed_steps(maker: str):
 
 
 def train_entry_point(mode: str, root: str, work: str,
-                      device: str = "cuda") -> dict:
-    """``eamm-torch-run``'s ``main`` at FULL_CONFIG widths and the YAML's
-    batch: TRAIN_STEPS steps with every launch count zeroed just before
-    and read just after, each step's wall seconds, peak memory; every
-    loss finite, the trained models changed, the frozen ones (weights and
-    BatchNorm statistics) bit for bit as drawn; a checkpoint, then one
-    more step resumed from it with ``--checkpoint latest``."""
+                      device: str = "cuda", steps: int = TRAIN_STEPS,
+                      jaco_net: str = "cnn") -> dict:
+    """``eamm-torch-run``'s ``main`` at FULL_CONFIG widths (ATNet's
+    ``jaco_net`` decoder) and the YAML's batch: ``steps`` steps with every
+    launch count zeroed just before and read just after, each step's wall
+    seconds, peak memory; every loss finite, the trained models changed,
+    the frozen ones (weights and BatchNorm statistics) bit for bit as
+    drawn; a checkpoint, then one more step resumed from it with
+    ``--checkpoint latest``."""
     from eamm_tpu_torch.cli.run import main as run_main
     from eamm_tpu_torch.train.logging import read_scalars
     from eamm_tpu_torch.train.loop import build_models
     cfg = train_config(mode, root, FULL_CONFIG, num_repeats=8,
-                       log_every=1)
-    path = os.path.join(work, f"{mode}.json")
+                       log_every=1, jaco_net=jaco_net)
+    label = mode if jaco_net == "cnn" else f"{mode} {jaco_net}"
+    path = os.path.join(work, f"{mode}_{jaco_net}.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
-    log = os.path.join(work, f"log_{mode}")
+    log = os.path.join(work, f"log_{mode}_{jaco_net}")
     argv = ["--config", path, "--mode", mode, "--log_dir", log,
             *(["--cpu"] if device == "cpu" else [])]
     images = CountedVisualizer()
@@ -2151,10 +2194,10 @@ def train_entry_point(mode: str, root: str, work: str,
             torch.cuda.reset_peak_memory_stats()
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
-                state, counts = drive(mode, MODE_KERNELS[mode],
+                state, counts = drive(label, MODE_KERNELS[mode],
                                       lambda: run_main(argv + [
-                                          "--max_steps", str(TRAIN_STEPS)]),
-                                      info={"steps": TRAIN_STEPS})
+                                          "--max_steps", str(steps)]),
+                                      info={"steps": steps})
             peak = torch.cuda.max_memory_allocated()
             drawn = model_tensors(build_models(
                 cfg, mode, mode == "train_part1_fine_tune", 0, device))
@@ -2184,16 +2227,17 @@ def train_entry_point(mode: str, root: str, work: str,
               for tag, (_, vals) in scalars.items()}
     if not all(np.isfinite(v).all() for v in losses.values()):
         raise AssertionError(f"{mode}: a loss is not finite: {losses}")
-    if state.step != TRAIN_STEPS or resumed.step != TRAIN_STEPS + 1:
-        raise AssertionError(f"{mode}: steps {state.step}, resumed "
+    if state.step != steps or resumed.step != steps + 1:
+        raise AssertionError(f"{label}: steps {state.step}, resumed "
                              f"{resumed.step}")
-    result = {"mode": mode, "batch": cfg["train_params"]["batch_size"],
-              "frames": 16, "steps": TRAIN_STEPS,
-              "step_seconds": walls[:TRAIN_STEPS],
-              "step_seconds_median": float(np.median(walls[1:TRAIN_STEPS])),
+    result = {"mode": mode, "jaco_net": jaco_net,
+              "batch": cfg["train_params"]["batch_size"],
+              "frames": 16, "steps": steps,
+              "step_seconds": walls[:steps],
+              "step_seconds_median": float(np.median(walls[1:steps])),
               "resumed_step_profile": profiled.get("summary"),
               "peak_memory_allocated": peak, "launches": counts,
-              "launches_per_step": {k: v / TRAIN_STEPS
+              "launches_per_step": {k: v / steps
                                     for k, v in counts.items()},
               "losses": losses, "changed": changed,
               "resumed_at": resumed.step, "visualizer": images.calls,
@@ -2304,15 +2348,18 @@ def planted_fault(entry: str, scale: float):
 
 
 def step_gradients(cfg: dict, batch: dict, seed: int, where: str,
-                   dtype: torch.dtype) -> dict:
-    """One ``train_part1_fine_tune`` gradient and its discriminator's on
-    ``where`` in ``dtype``: the metrics, each trained leaf's gradient and
-    the trained models' BatchNorm statistics, in float64 on the CPU."""
+                   dtype: torch.dtype,
+                   mode: str = "train_part1_fine_tune") -> dict:
+    """One ``mode`` gradient (and, in the fine-tune, its discriminator's)
+    on ``where`` in ``dtype``: the metrics, each trained leaf's gradient
+    and the trained models' BatchNorm statistics, in float64 on the
+    CPU."""
     from eamm_tpu_torch.train import steps as S
     from eamm_tpu_torch.train.loop import build_models
     from eamm_tpu_torch.train.optim import make_optimizer
     tp = cfg["train_params"]
-    models = build_models(cfg, "train_part1_fine_tune", True, seed, where)
+    fine_tune = mode == "train_part1_fine_tune"
+    models = build_models(cfg, mode, fine_tune, seed, where)
     # the Jacobian heads start at zero weights (an identity Jacobian, a
     # Jacobian loss of rounding noise): give them the same small random
     # weights on every side
@@ -2324,14 +2371,17 @@ def step_gradients(cfg: dict, batch: dict, seed: int, where: str,
                 *w.shape).astype(np.float32)))
     for m in models.values():
         m.to(dtype)
-    state = S.init_part1_state(models, make_optimizer, True, make_optimizer)
+    state = S.init_part1_state(models, make_optimizer, fine_tune,
+                               make_optimizer if fine_tune else None)
     b = S.to_device(batch, where)
     metrics, gen_out = S.part1_grads(state, tp, b)
-    metrics.update(S.discriminator_grads(state, tp, b, gen_out))
+    if fine_tune:
+        metrics.update(S.discriminator_grads(state, tp, b, gen_out))
     return {
         "metrics": {k: float(v) for k, v in metrics.items()},
         "grads": {f"{n}.{k}": p.grad.double().cpu()
-                  for n in (*state.trainable, "discriminator")
+                  for n in (*state.trainable,
+                            *(("discriminator",) if fine_tune else ()))
                   for k, p in models[n].named_parameters()},
         "stats": {f"{n}.{k}": v.double().cpu()
                   for n in state.trainable
@@ -2428,25 +2478,50 @@ def step_comparison(ref: dict, cpu32):
 
 
 def cpu_vs_card_step(seed: int = 0, device: str = "cuda",
-                     batch_size: int = 2, faults: dict = FAULTS) -> dict:
+                     batch_size: int = 2, faults: dict = FAULTS,
+                     jaco_net: str = "cnn",
+                     mode: str = "train_part1_fine_tune",
+                     line: str = "train_cpu_vs_card") -> dict:
     """One ``train_part1_fine_tune`` gradient (perceptual and GAN on, then
     the discriminator's) at TINY_CONFIG widths from the same seeded
     weights and batch: on the CPU in float64 (the plain versions: the
-    reference), on the CPU in float32, and on the card in float32 (the
-    kernels; TF32 off).  The card's losses and BatchNorm statistics are
-    held to the reference within STEP_TOL, and each gradient leaf within
-    STEP_TOL's relative L2 or, where float32 itself cannot reach it, three
-    times the CPU float32 step's own error on that leaf.  Float32 cannot
-    reach 1e-3 on most leaves: the mimic heatmap term's gradient is 100 *
-    weight / N * sign(difference) per pixel, and where both heatmaps are
-    ~0 that sign is rounding noise, so float32 and float64 flip different
-    pixels, and a BatchNorm parameter's gradient is a sum that cancels
-    (the CPU's float32 step is 0.3-1.2% off float64 in median on the
-    trained models, the discriminator's 1e-5); the flips are random, hence
-    the margin.  As a control, the card's step is taken again with each of
-    ``faults`` planted, and the comparison must refuse those marked so."""
-    cfg = train_config("train_part1_fine_tune", "", TINY_CONFIG,
-                       batch_size=batch_size, scales=[0.25])
+    reference), on the CPU in float32 on each of FLOAT32_THREADS, and on
+    the card in float32 (the kernels; TF32 off).  The card's losses and
+    BatchNorm statistics are held to the reference within STEP_TOL, and
+    each gradient leaf within STEP_TOL's relative L2 or, where float32
+    itself cannot reach it, three times the largest error of the CPU's
+    float32 steps on that leaf.  Float32 cannot reach 1e-3 on most
+    leaves: the mimic heatmap term's gradient is 100 * weight / N *
+    sign(difference) per pixel, and where both heatmaps are ~0 that sign
+    is rounding noise, so float32 and float64 flip different pixels, and
+    a BatchNorm parameter's gradient is a sum that cancels (the CPU's
+    float32 step is 0.3-1.2% off float64 in median on the trained models,
+    the discriminator's 1e-5).  The flips are random, and one summation
+    order is one draw of them: the generator's final.bias is 3.2e-3 off
+    on 1 and 4 threads, 5e-5 on 2 and 8, and 3.3e-3 on the card, hence
+    the four orders and the margin.  As a control, the card's step is
+    taken again with each of ``faults`` planted, and the comparison must
+    refuse those marked so.  ``jaco_net`` picks ATNet's decoder, ``mode``
+    the step (part1 has the audio losses alone), ``line`` names the
+    emitted line."""
+    cfg, batch = step_inputs(seed, batch_size, jaco_net, mode)
+    return held_step(
+        line,
+        step_gradients(cfg, batch, seed, "cpu", torch.float64, mode),
+        [on_threads(n, lambda: step_gradients(cfg, batch, seed, "cpu",
+                                              torch.float32, mode))
+         for n in FLOAT32_THREADS],
+        lambda: step_gradients(cfg, batch, seed, device, torch.float32,
+                               mode),
+        faults)
+
+
+def step_inputs(seed: int = 0, batch_size: int = 2, jaco_net: str = "cnn",
+                mode: str = "train_part1_fine_tune") -> tuple[dict, dict]:
+    """The config (TINY_CONFIG widths, one discriminator scale) and the
+    seeded batch of ``cpu_vs_card_step``."""
+    cfg = train_config(mode, "", TINY_CONFIG, batch_size=batch_size,
+                       scales=[0.25], jaco_net=jaco_net)
     cfg["model_params"]["discriminator_params"]["scales"] = [0.25]
     rng = np.random.RandomState(seed)
     B = batch_size
@@ -2454,12 +2529,7 @@ def cpu_vs_card_step(seed: int = 0, device: str = "cuda",
              "driving": rng.rand(B, 5, 256, 256, 3).astype(np.float32),
              "driving_audio": rng.randn(B, 5, 28, 12).astype(np.float32),
              "driving_pose": rng.randn(B, 5, 6).astype(np.float32)}
-    return held_step(
-        "train_cpu_vs_card",
-        *(step_gradients(cfg, batch, seed, "cpu", dt)
-          for dt in (torch.float64, torch.float32)),
-        lambda: step_gradients(cfg, batch, seed, device, torch.float32),
-        faults)
+    return cfg, batch
 
 
 def on_threads(threads: int, fn):
@@ -2774,10 +2844,10 @@ def part2_step_gradients(cfg: dict, batch: dict, seed: int, where: str,
 def part2_cpu_vs_card(seed: int = 0, device: str = "cuda") -> dict:
     """One part2 gradient (``map_4``, ``smooth`` on) at TINY widths (the
     emotion hourglass narrow) from the same seeded weights and batch (2
-    clips of 3 frames), on the CPU in float64, on the CPU in float32 and
-    on the card in float32, held as phase 8's step is (``held_step``),
-    with one difference: each leaf's float32 error is the largest of the
-    CPU's float32 steps on 1, 2, 4 and 8 threads (four summation orders).
+    clips of 3 frames), on the CPU in float64, on the CPU in float32 on
+    each of FLOAT32_THREADS and on the card in float32, held as phase 8's
+    step is (``held_step``): each leaf's float32 error is the largest of
+    the CPU's float32 steps (four summation orders).
     A leaf's float32 error here is not one number but a spread: the
     decoder's BatchNorm biases are sums that cancel, and one summation
     order can tip a term across a kink (final.4.bias: 2e-5 on 1, 4 and 8
@@ -2799,7 +2869,7 @@ def part2_cpu_vs_card(seed: int = 0, device: str = "cuda") -> dict:
         part2_step_gradients(cfg, batch, seed, "cpu", torch.float64),
         [on_threads(n, lambda: part2_step_gradients(cfg, batch, seed, "cpu",
                                                     torch.float32))
-         for n in (1, 2, 4, 8)],
+         for n in FLOAT32_THREADS],
         lambda: part2_step_gradients(cfg, batch, seed, device, torch.float32),
         {k: v for k, v in FAULTS.items() if k.startswith("K3b")})
 
@@ -2913,6 +2983,266 @@ def part2_phase(device: str = "cuda") -> dict:
                 for name, etype, aug, resume in PART2_RUNS}
         evaluation = eval_modes(work, device)
     return {"runs": runs, "eval": evaluation}
+
+
+# ------------------------------------------------ phase 10: the gan A2FD
+
+GAN_SECONDS = (4.0, 10.0)
+GAN_TRAIN_STEPS = 2             # then one more, resumed: three steps
+GAN_ARTIFACT_FRAMES = 32        # the artifact program's bucket (a 1 s clip)
+GAN_FAULTS = {k: FAULTS[k] for k in ("K3b_grad_jmap_x1.1",)}
+
+
+def with_gan_atnet(pipe: EammPipeline, seed: int = 0) -> EammPipeline:
+    """``pipe``'s models with ATNet replaced by a gan ATNet drawn from
+    ``seed`` (``reset_parameters``), under ``pipe``'s options and config
+    with ``jaco_net: gan``: the two routes differ in ATNet alone.  (A gan
+    config drawn whole by ``from_random`` gives the other models other
+    weights, since the synthesis network takes its own draws first.)"""
+    config = {**pipe.config, "train_params": {"jaco_net": "gan"}}
+    atnet = cfg.build_atnet(config)
+    reset_parameters(atnet, torch.Generator().manual_seed(seed))
+    return EammPipeline(config, models={**pipe.models,
+                                        "audio_feature": atnet},
+                        options=pipe.options)
+
+
+def gan_renders(gan: EammPipeline, cnn: EammPipeline) -> dict:
+    """Neutral and emotional (linear_3, EMOTION_FRAMES frames) requests of
+    4 s and 10 s through ``render_uint8``, bfloat16 generator, on the gan
+    pipeline and on phase 5's cnn pipeline in turn (cnn, gan): each one's
+    wall seconds, fps and peak device memory, and its launches (K1-K3 must
+    launch); the 4 s clips in float32, bfloat16 within phase 5's bounds of
+    them; a 4 s float32 neutral stream in chunks of STREAM_FRAMES within
+    one count of the whole clip -> {'rows', 'launches'}."""
+    video = emotion_clip(EMOTION_FRAMES, 7)
+    for p in (cnn, gan):                # warm-up of both routes, not counted
+        p.render_uint8(*clip_inputs(1.0, 100), add_emo=False)
+        p.render_uint8(*clip_inputs(4.0, 100), video)
+    rows, launches = {}, {}
+    kinds = {"neutral": (None, False), "emotional": (video, True)}
+    for kind, args in kinds.items():
+        for seconds in GAN_SECONDS:
+            clip = clip_inputs(seconds, 1)
+            key = f"{kind} {seconds:g} s"
+            for route, p in (("cnn", cnn), ("gan", gan)):
+                torch.cuda.reset_peak_memory_stats()
+                _, counts = drive(f"phase 10 {route} {kind}", RENDER_KERNELS,
+                                  lambda: p.render_uint8(*clip, *args),
+                                  seconds)
+                row = REQUESTS[-1]
+                rows.setdefault(key, {})[route] = {
+                    "wall_seconds": row["wall_seconds"], "fps": row["fps"],
+                    "peak_memory_allocated": torch.cuda.max_memory_allocated()}
+                if route == "gan":
+                    launches[f"gan {key}"] = counts
+    clip = clip_inputs(4.0, 2)
+    f32 = with_options(gan, compute_dtype=torch.float32)
+    for (kind, args), (mean, p99) in zip(kinds.items(),
+                                         ((0.5, 2.0), (0.75, 3.0))):
+        quality = uint8_diff(gan.render_uint8(*clip, *args),
+                             f32.render_uint8(*clip, *args))
+        emit("bf16_vs_f32", path=f"gan {kind}", clip_seconds=4.0,
+             uint8_diff=quality)
+        if not (quality["mean"] < mean and quality["p99"] <= p99):
+            raise AssertionError(f"gan bf16 {kind} render strays from f32: "
+                                 f"{quality}")
+    chunks = with_options(f32, segment_frames=STREAM_FRAMES)
+    list(chunks.render_stream(*clip_inputs(1.0, 100), add_emo=False))
+    whole = f32.render_uint8(*clip, add_emo=False)
+    info = {}
+    out, launches["gan unbounded f32 neutral 4 s"] = drive(
+        "gan unbounded f32 neutral", RENDER_KERNELS,
+        lambda: joined(chunks.render_stream(*clip, add_emo=False), info),
+        4.0, info)
+    diff = uint8_diff(out, whole)
+    emit("unbounded_vs_whole", path="gan neutral", dtype="float32",
+         clip_seconds=4.0, uint8_diff=diff)
+    if out.shape != whole.shape or diff["max"] > 1.0:
+        raise AssertionError(f"gan unbounded stream strays from the whole "
+                             f"clip: {diff}")
+    return {"rows": rows, "launches": launches}
+
+
+@torch.no_grad()
+def atnet_share(pipe: EammPipeline, seconds: float = 10.0,
+                rounds: int = 3) -> dict:
+    """Wall ms (ended by a synchronize) of the neutral keypoint stage of a
+    ``seconds`` clip and of ATNet's part of it (the identity encoder, the
+    window encoders, the LSTM and the decoder over every window), in
+    turns (stage, ATNet, ATNet, stage per round) -> medians and ATNet's
+    share."""
+    T, source, wav, pose = pipe._prepare(*clip_inputs(seconds, 1))
+    windows = audio_to_mfcc_windows(wav)[:pose.shape[0]]
+    atnet = pipe.models["audio_feature"]
+    fns = {"kp_stage": lambda: pipe._kp_stage(source, wav, pose, None,
+                                              False),
+           "atnet": lambda: atnet(source, windows[None], pose[None],
+                                  audio_weight=pipe.options.audio_weight)}
+    samples = {name: [] for name in fns}
+    for fn in fns.values():
+        fn()
+    for _ in range(rounds):
+        for name in ("kp_stage", "atnet", "atnet", "kp_stage"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            samples[name].append(1e3 * (time.perf_counter() - t0))
+    med = {name: float(np.median(v)) for name, v in samples.items()}
+    return {"windows": int(pose.shape[0]), "kp_stage_ms": med["kp_stage"],
+            "atnet_ms": med["atnet"],
+            "atnet_share": med["atnet"] / med["kp_stage"]}
+
+
+def gan_serving(gan: EammPipeline, work: str, device: str = "cuda") -> dict:
+    """The gan models saved as the reference's files (the audio file with
+    the deconv decoder the reference holds), preflighted and loaded back
+    through ``from_torch_checkpoints`` (bf16, yuv420); one 4 s neutral
+    request through a ``RenderServer`` on them, the call the worker made
+    made again on this thread and held to its result bit for bit, the
+    client's payload to its part of it -> the call's launches."""
+    from eamm_tpu_torch.serve import RenderServer
+    opts = PipelineOptions(frame_chunk=32, time_bucket=32,
+                           compute_dtype=torch.bfloat16,
+                           transfer_format="yuv420", device=device)
+    _, loaded = checkpoint_path(gan, work, opts)
+    rec = Recorder(loaded)
+    server = RenderServer(loaded, max_batch=1, max_delay_ms=0.0)
+    clip = clip_inputs(SERVE_SECONDS, 900)
+    try:
+        t0 = time.perf_counter()
+        payload = server.render(*clip, timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        server.stop()
+    call, row = served_by(rec.calls, clip[1])
+    same_bits(tuple(rec.replay(call)), tuple(call["result"]),
+              "gan served call against the same call again")
+    T = num_windows_for_samples(len(clip[1]))
+    want = tuple(p[row, :T] if row is not None else p[:T]
+                 for p in call["result"])
+    got = payload if isinstance(payload, tuple) else _planes(payload)
+    same_bits(got, want, "gan client payload")
+    frames_out(got)
+    missing = [k for k in RENDER_KERNELS if call["launches"][k] <= 0]
+    emit("gan_serving", method=call["method"], wall_seconds=wall, frames=T,
+         launches=call["launches"], ignored_keys=loaded.ignored_keys)
+    if missing:
+        raise AssertionError(f"gan served call: not launched: {missing}")
+    return call["launches"]
+
+
+def gan_artifact(gan: EammPipeline, work: str, device: str = "cuda") -> dict:
+    """One batched program of the gan pipeline (batch 1, bucket
+    GAN_ARTIFACT_FRAMES, bf16, yuv420) exported on the card, loaded back
+    and run on a seeded 1 s clip's inputs: bitwise the live pipeline's
+    function on the same inputs -> the program's launches."""
+    from eamm_tpu_torch.infer import export as ex
+    live = EammPipeline(gan.config, models=gan.models, options=PipelineOptions(
+        frame_chunk=32, time_bucket=32, compute_dtype=torch.bfloat16,
+        transfer_format="yuv420", device=device))
+    path = os.path.join(work, "gan.eammx")
+    t0 = time.perf_counter()
+    ex.export_render_artifact(live, path, batch=1,
+                              frame_buckets=(GAN_ARTIFACT_FRAMES,))
+    export_s = time.perf_counter() - t0
+    art = ex.RenderArtifact.load(path, device)
+    _, srcs, wins, poses = art._prepare_batch(*zip(clip_inputs(1.0, 910)))
+    name = f"1x{GAN_ARTIFACT_FRAMES}"
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = art._call(name, srcs, wins, poses)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = live._batch_render_impl(srcs, wins, poses)
+    if len(got) != len(want) or not all(torch.equal(a, b)
+                                        for a, b in zip(got, want)):
+        raise AssertionError(f"gan artifact program {name}: not bitwise "
+                             "the live call")
+    emit("gan_artifact", program=name, export_seconds=export_s,
+         bytes=os.path.getsize(path), launches=launches)
+    missing = [k for k in RENDER_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"gan artifact program: not launched: "
+                             f"{missing}")
+    return launches
+
+
+def native_decoder_check(work: str) -> dict:
+    """Whether the native PNG decoder built, and a seeded batch of 8
+    64x48 PNGs (``train/visualizer.py``'s writer) decoded, held within
+    1e-6 to imageio's reading (``read_png`` where imageio is missing), as
+    the JAX package's test holds its decoder.  Without the library and
+    without imageio nothing can decode, and the line says so."""
+    from eamm_tpu_torch.data import native
+    from eamm_tpu_torch.train.visualizer import write_png
+    rng = np.random.RandomState(12)
+    images = (rng.rand(8, 64, 48, 3) * 255).astype(np.uint8)
+    paths = []
+    for i, img in enumerate(images):
+        paths.append(os.path.join(work, f"{i}.png"))
+        write_png(paths[-1], img)
+    built = native.native_available()
+    has_imageio = importable("imageio")
+    result = {"built": built, "decoder": "native" if built else "imageio",
+              "reference": "imageio" if has_imageio else "read_png",
+              "build_error": native.build_error()}
+    if not built and not has_imageio:
+        emit("native_decoder", **result, decoded=False)
+        return result
+    t0 = time.perf_counter()
+    out = native.decode_batch(paths, 64, 48)
+    result["seconds"] = time.perf_counter() - t0
+    if has_imageio:
+        import imageio.v2 as imageio
+        ref = np.stack([np.asarray(imageio.imread(p))[..., :3]
+                        for p in paths])
+    else:
+        ref = np.stack([read_png(p) for p in paths])
+    result["max_abs_err"] = float(np.abs(
+        out - ref.astype(np.float32) / 255.0).max())
+    emit("native_decoder", **result, decoded=True)
+    if result["max_abs_err"] > 1e-6:
+        raise AssertionError(f"native decoder: {result}")
+    return result
+
+
+def gan_phase(cnn: EammPipeline, device: str = "cuda") -> dict:
+    """Phase 10: the ``jaco_net: gan`` A2FD at FULL_CONFIG beside phase 5's
+    cnn pipeline ``cnn`` -> {'launches': path -> counts}."""
+    t_phase = time.perf_counter()
+    for result in cpu_vs_device(device, 0, with_gan_atnet).values():
+        emit("gan_cpu_vs_card", **result)
+    t0 = time.perf_counter()
+    gan = with_gan_atnet(cnn)
+    torch.cuda.synchronize()
+    emit("gan_setup", seconds=time.perf_counter() - t0)
+    renders = gan_renders(gan, cnn)
+    launches = dict(renders["launches"])
+    share = {route: atnet_share(p) for route, p in (("cnn", cnn),
+                                                   ("gan", gan))}
+    emit("gan_vs_cnn", renders=renders["rows"], atnet_share=share,
+         card=card_line())
+    with tempfile.TemporaryDirectory() as work:
+        launches["gan served 4 s"] = gan_serving(gan, work, device)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            launches["gan artifact 1 s"] = gan_artifact(gan, work, device)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        root = os.path.join(work, "lrw")
+        write_lrw_tree(root)
+        run = train_entry_point("train_part1", root, work, device,
+                                steps=GAN_TRAIN_STEPS, jaco_net="gan")
+        launches["gan train_part1 per step"] = run["launches_per_step"]
+        native_decoder_check(work)
+    cpu_vs_card_step(device=device, faults=GAN_FAULTS, jaco_net="gan",
+                     mode="train_part1", line="gan_train_cpu_vs_card")
+    emit("gan_phase", seconds=time.perf_counter() - t_phase,
+         card=card_line())
+    return {"launches": launches}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -3051,11 +3381,12 @@ def backward_timings() -> dict:
     training path asks for (K1b both, K2b the grid's): device ms by CUDA
     graph replay in turns with the library call of the same gradient
     (``aten.grid_sampler_2d_backward``; K3b has none), the plain version
-    eager, and the bound: bytes at 3.35 TB/s, each input read once, the
-    grid's gradient written once, the image gradient's float32 accumulator
-    zeroed, read and written once per element (the atomics'
-    read-modify-write; for a float32 image the accumulator is the
-    gradient), against operations at 67 TFLOP/s."""
+    eager, and the bound: bytes at 3.35 TB/s, each input read once and
+    each gradient written once, against operations at 67 TFLOP/s.  The
+    warps' rows also carry ``bound_accumulator``: the image gradient's
+    float32 accumulator counted as zeroed, read and written once per
+    element (the atomics' read-modify-write; for a float32 image the
+    accumulator is the gradient), the traffic this design cannot avoid."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     out = {}
     for name, Bi, group, C, need in (
@@ -3077,19 +3408,25 @@ def backward_timings() -> dict:
         n_bytes = nbytes(grad_out, grid, grad_grid)
         if need[1]:
             n_bytes += nbytes(image)             # read for the grid's sum
+        accumulator = n_bytes
         if need[0]:
+            n_bytes += nbytes(grad_image)
             # the float32 accumulator zeroed, then read and written once
             # (the atomics); a float32 image's gradient is the accumulator
             # itself, a bfloat16 one is a rounding pass that reads it and
             # writes the gradient
-            n_bytes += 3 * 4 * image.numel()
+            accumulator += 3 * 4 * image.numel()
             if grad_image.dtype != torch.float32:
-                n_bytes += 4 * image.numel() + nbytes(grad_image)
+                accumulator += 4 * image.numel() + nbytes(grad_image)
         ops = grad_out.numel() * 4 * (2 * need[0] + 2 * need[1])
+        bound_acc = bound_ms(accumulator, ops)
         out[name] = {"ms": times["ms"]["median"],
                      "library_ms": times["library_ms"]["median"],
                      "plain_ms": time_ms(lambda: plain(*args)),
-                     "bound": bound_ms(n_bytes, ops), "timing": times}
+                     "bound": bound_ms(n_bytes, ops),
+                     "timing": {**times, "bound_accumulator": {
+                         "bound_ms": bound_acc[0], "bound_by": bound_acc[1],
+                         "share": bound_acc[0] / times["ms"]["median"]}}}
     wrapper, plain = BACKWARD_KERNELS["kp_expectation_backward"][:2]
 
     def k3b_bound(args):
@@ -3214,6 +3551,7 @@ def main() -> int:
     artifact_phase(pipe)
     training = training_phase()
     part2 = part2_phase()
+    gan = gan_phase(pipe)
     times = {**timings(captured), **backward_timings()}
 
     # whose launches each row counts
@@ -3251,6 +3589,9 @@ def main() -> int:
                      "launches_per_part2_step": {
                          run_name: run["launches_per_step"][name]
                          for run_name, run in part2["runs"].items()},
+                     "launches_by_gan_path": {
+                         path: counts.get(name, 0)
+                         for path, counts in gan["launches"].items()},
                      "launches_by_eval_mode": {
                          **{mode: counts[name] for mode, counts
                             in part2["eval"]["launches"].items()},

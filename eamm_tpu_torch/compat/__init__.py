@@ -39,6 +39,22 @@ def count_indexed(sd: Mapping, fmt: str) -> int:
 # the port's EmotionK does not hold: the unused ``final_4`` Conv1d stack
 EMOTION_K_UNUSED = ("final_4.",)
 
+# keys of the reference's AT_net that the port's ATNet of each decoder
+# does not hold: the reference builds both the deconv decoder and the
+# StyleGAN2 synthesis network whatever ``jaco_net`` says, so its files may
+# hold both, and the JAX package reads the one its model runs
+ATNET_UNUSED = {"cnn": ("generator.",), "gan": ("decon.",)}
+
+
+def unused_prefixes(name: str, module: torch.nn.Module) -> tuple[str, ...]:
+    """The key prefixes a reference file holds for model ``name`` that
+    ``module`` does not (``split_unused``)."""
+    if name == "emo_detector":
+        return EMOTION_K_UNUSED
+    if name == "audio_feature":
+        return ATNET_UNUSED[module.jaco_net]
+    return ()
+
 
 def model_state_dicts(fomm: Mapping, audio: Mapping, emo: Mapping) -> dict:
     """The three loaded checkpoints -> the render's five state_dicts by

@@ -65,11 +65,10 @@ def build_generator(config: dict) -> OcclusionAwareGenerator:
 
 
 def build_atnet(config: dict) -> ATNet:
+    """ATNet with ``train_params.jaco_net``'s decoder: 'cnn' (the
+    default) or 'gan' (StyleGAN2 synthesis)."""
     jaco_net = (config.get("train_params") or {}).get("jaco_net") or "cnn"
-    if jaco_net != "cnn":
-        raise NotImplementedError(f"jaco_net={jaco_net!r}: the port has the "
-                                  "'cnn' decoder only (ROADMAP Queue 1)")
-    return ATNet()
+    return ATNet(jaco_net)
 
 
 def build_emotion_detector(config: dict | None = None,

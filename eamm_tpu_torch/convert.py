@@ -18,7 +18,17 @@ converters (``eamm_tpu/compat/torch_convert.py``):
 - LSTM w_ih/w_hh [in, 4H] -> weight_ih/weight_hh [4H, in];
 - the discriminator's spectral-norm kernel and ``u`` -> ``weight_orig``
   and ``weight_u`` (the reference's ``nn.utils.spectral_norm`` names);
-  VGG19 ``conv<i>`` -> torchvision's ``features.<i>``.
+  VGG19 ``conv<i>`` -> torchvision's ``features.<i>``;
+- StyleGAN2: an equalized dense ``weight`` [I, O] -> [O, I]; a modulated
+  ``weight`` HWIO -> [1, O, I, kh, kw] (an equalized conv's -> OIHW); a
+  StyledConv's ``bias`` -> ``activate.bias``, a ToRGB's -> [1, C, 1, 1];
+  the synthesis network's style MLP ``style<i>`` -> ``style.<i + 1>``,
+  ``conv_up<i>`` / ``conv_same<i>`` -> ``convs.<2i>`` / ``convs.<2i+1>``,
+  ``to_rgb_up<i>`` -> ``to_rgbs.<i>`` (the reference's names); the image
+  networks keep the JAX names;
+- the auxiliary networks (``models/aux.py``) the reference's names of the
+  JAX package's converters; TFNet's AdaIN layers ``style_mod`` /
+  ``style_mod1`` -> the port's ``input_style`` / ``output_style``.
 """
 from __future__ import annotations
 
@@ -137,35 +147,255 @@ def generator_state_dict(variables: dict) -> dict:
     return b.sd
 
 
-def atnet_state_dict(variables: dict) -> dict:
-    b = _StateDict(variables)
-    if "generator" in b.params:
-        raise NotImplementedError("jaco_net='gan' ATNet is not ported")
+def _audio_encoder(b: _StateDict, path: str, name: str = "audio_eocder",
+                   fc: str = "audio_eocder_fc") -> None:
+    """The AudioEncoder conv stack and its two Linears."""
+    for j, t in enumerate([0, 1, 3, 4, 5]):        # MaxPools sit at 2 and 6
+        b.conv(f"{path}/conv{j}/conv", f"{name}.{t}.0")
+        b.norm(f"{path}/conv{j}/norm", f"{name}.{t}.1")
+    b.linear(f"{path}/fc0", f"{fc}.0", flatten_from_chw=(512, 12, 2))
+    b.linear(f"{path}/fc1", f"{fc}.2")
+
+
+def _lstm(b: _StateDict, path: str, name: str) -> None:
+    lstm = b.params[path]
+    for l in range(3):
+        for part in ("ih", "hh"):
+            b._put(f"{name}.weight_{part}_l{l}",
+                   np.asarray(lstm[f"w_{part}_l{l}"]).T)
+        for part in ("ih", "hh"):
+            b._put(f"{name}.bias_{part}_l{l}", lstm[f"b_{part}_l{l}"])
+
+
+def _decon(b: _StateDict, path: str, name: str, n: int) -> None:
+    """A ``decon`` Sequential of ``n`` transposed convs with BN between
+    (``<path>decon<j>`` / ``<path>norm<j>`` -> ``<name>.<3j>`` /
+    ``<name>.<3j+1>``)."""
+    for j in range(n):
+        b.conv_transpose(f"{path}decon{j}", f"{name}.{3 * j}")
+        if j < n - 1:
+            b.norm(f"{path}norm{j}", f"{name}.{3 * j + 1}")
+
+
+def _atnet_trunk(b: _StateDict) -> None:
     for i in range(8):
         b.block(f"image_encoder/down{i}", f"down_blocks.{i}")
     b.linear("pose_encoder/fc0", "pose_encoder.0")
     b.linear("pose_encoder/fc1", "pose_encoder.2")
-    for j, t in enumerate([0, 1, 3, 4, 5]):        # MaxPools sit at 2 and 6
-        b.conv(f"audio_encoder/conv{j}/conv", f"audio_eocder.{t}.0")
-        b.norm(f"audio_encoder/conv{j}/norm", f"audio_eocder.{t}.1")
-    b.linear("audio_encoder/fc0", "audio_eocder_fc.0",
-             flatten_from_chw=(512, 12, 2))
-    b.linear("audio_encoder/fc1", "audio_eocder_fc.2")
-    lstm = b.params["lstm"]
-    for l in range(3):
-        for part in ("ih", "hh"):
-            b._put(f"lstm.weight_{part}_l{l}", np.asarray(lstm[f"w_{part}_l{l}"]).T)
-        for part in ("ih", "hh"):
-            b._put(f"lstm.bias_{part}_l{l}", lstm[f"b_{part}_l{l}"])
-    for j, t in enumerate([0, 3, 6, 9, 12]):       # BN at 1, 4, 7, 10
-        b.conv_transpose(f"decoder/decon{j}", f"decon.{t}")
-        if j < 4:
-            b.norm(f"decoder/norm{j}", f"decon.{t + 1}")
+    _audio_encoder(b, "audio_encoder")
+
+
+def atnet_state_dict(variables: dict) -> dict:
+    """ATNet of either ``jaco_net``: the deconv decoder's keys where the
+    tree holds ``decoder`` (a JAX cnn ATNet, or any tree converted from a
+    reference file, which holds both), the synthesis network's under
+    ``generator.`` where it holds ``generator``."""
+    b = _StateDict(variables)
+    _atnet_trunk(b)
+    _lstm(b, "lstm", "lstm")
+    if "decoder" in b.params:
+        _decon(b, "decoder/", "decon", 5)
+    if "generator" in b.params:
+        b.sd.update(synthesis_state_dict({"params": b.params["generator"]},
+                                         "generator."))
     return b.sd
 
 
-def _emotion_trunk(b: _StateDict) -> None:
-    """Hourglass, ResNet trunk and classifier of both emotion models."""
+# ------------------------------------------------------------ StyleGAN2
+
+def _tensor(value) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(value))
+
+
+def _equal_linear(sd: dict, leaf: dict, name: str,
+                  flatten_from_chw=None) -> None:
+    w = np.asarray(leaf["weight"]).T                    # [O, I]
+    if flatten_from_chw is not None:
+        C, H, W = flatten_from_chw
+        w = w.reshape(-1, H, W, C).transpose(0, 3, 1, 2).reshape(-1, C * H * W)
+    sd[f"{name}.weight"] = _tensor(w)
+    sd[f"{name}.bias"] = _tensor(leaf["bias"])
+
+
+def _modulated(sd: dict, leaf: dict, name: str) -> None:
+    sd[f"{name}.weight"] = _tensor(
+        np.asarray(leaf["weight"]).transpose(3, 2, 0, 1)[None])
+    if "modulation" in leaf:
+        _equal_linear(sd, leaf["modulation"], f"{name}.modulation")
+
+
+def _styled_conv(sd: dict, leaf: dict, name: str) -> None:
+    _modulated(sd, leaf["conv"], f"{name}.conv")
+    sd[f"{name}.activate.bias"] = _tensor(leaf["bias"])
+
+
+def synthesis_state_dict(variables: dict, prefix: str = "") -> dict:
+    """SynthesisGenerator: the inverse of the JAX package's
+    ``convert_stylegan2``."""
+    p, sd = variables["params"], {}
+    for i in range(sum(1 for k in p if k.startswith("style"))):
+        _equal_linear(sd, p[f"style{i}"], f"{prefix}style.{i + 1}")
+
+    def to_rgb(leaf, name):
+        _modulated(sd, leaf["conv"], f"{name}.conv")
+        sd[f"{name}.bias"] = _tensor(np.asarray(leaf["bias"])
+                                     .reshape(1, -1, 1, 1))
+
+    _styled_conv(sd, p["conv1"], f"{prefix}conv1")
+    to_rgb(p["to_rgb1"], f"{prefix}to_rgb1")
+    for li in range(sum(1 for k in p if k.startswith("conv_up"))):
+        _styled_conv(sd, p[f"conv_up{li}"], f"{prefix}convs.{2 * li}")
+        _styled_conv(sd, p[f"conv_same{li}"], f"{prefix}convs.{2 * li + 1}")
+        to_rgb(p[f"to_rgb_up{li}"], f"{prefix}to_rgbs.{li}")
+    return sd
+
+
+def _conv_layer(sd: dict, leaf: dict, name: str) -> None:
+    """ConvLayer: ``conv`` (EqualConv, weight HWIO) and its ``bias``."""
+    conv = leaf["conv"]
+    sd[f"{name}.conv.weight"] = _tensor(
+        np.asarray(conv["weight"]).transpose(3, 2, 0, 1))
+    if "bias" in conv:
+        sd[f"{name}.conv.bias"] = _tensor(conv["bias"])
+    if "bias" in leaf:
+        sd[f"{name}.bias"] = _tensor(leaf["bias"])
+
+
+def _res_block(sd: dict, leaf: dict, name: str) -> None:
+    for part in ("conv1", "conv2", "skip"):
+        if part in leaf:
+            _conv_layer(sd, leaf[part], f"{name}.{part}")
+
+
+def _image_blocks(sd: dict, p: dict, prefix: str = "") -> None:
+    """Every ConvLayer, DResBlock and style-free StyledConv of a StyleGAN2
+    image network, by its JAX name."""
+    for key, leaf in p.items():
+        if key.startswith(("res", "down")):
+            _res_block(sd, leaf, f"{prefix}{key}")
+        elif key.startswith("up"):
+            _styled_conv(sd, leaf, f"{prefix}{key}")
+        elif key in ("from_rgb", "final_conv", "final_linear", "to_rgb"):
+            _conv_layer(sd, leaf, f"{prefix}{key}")
+
+
+def stylegan2_discriminator_state_dict(variables: dict,
+                                       prefix: str = "") -> dict:
+    """StyleGAN2Discriminator; the global head's first dense layer reads
+    the 4x4 map flattened (c, h, w), JAX's (h, w, c)."""
+    p, sd = variables["params"], {}
+    _image_blocks(sd, p, prefix)
+    if "final_dense0" in p:
+        c = np.asarray(p["final_dense0"]["weight"]).shape[1]
+        _equal_linear(sd, p["final_dense0"], f"{prefix}final_dense0",
+                      flatten_from_chw=(c, 4, 4))
+        _equal_linear(sd, p["final_dense1"], f"{prefix}final_dense1")
+    return sd
+
+
+def tile_discriminator_state_dict(variables: dict) -> dict:
+    return stylegan2_discriminator_state_dict(
+        {"params": variables["params"]["discriminator"]}, "discriminator.")
+
+
+def image_network_state_dict(variables: dict) -> dict:
+    """StyleGAN2Encoder or StyleGAN2Decoder."""
+    sd = {}
+    _image_blocks(sd, variables["params"])
+    return sd
+
+
+def stylegan2_image_generator_state_dict(variables: dict) -> dict:
+    p, sd = variables["params"], {}
+    _image_blocks(sd, p["encoder"], "encoder.")
+    _image_blocks(sd, p["decoder"], "decoder.")
+    return sd
+
+
+# ------------------------------------------------- auxiliary networks
+
+def ct_encoder_state_dict(variables: dict) -> dict:
+    b = _StateDict(variables)
+    _audio_encoder(b, "encoder")
+    return b.sd
+
+
+def emotion_net_state_dict(variables: dict) -> dict:
+    b = _StateDict(variables)
+    for j, t in enumerate([0, 2, 3, 5]):            # MaxPools at 1, 4, 6
+        b.conv(f"conv{j}/conv", f"emotion_eocder.{t}.0")
+        b.norm(f"conv{j}/norm", f"emotion_eocder.{t}.1")
+    b.linear("fc0", "emotion_eocder_fc.0")
+    b.linear("fc1", "emotion_eocder_fc.2")
+    return b.sd
+
+
+def af2f_state_dict(variables: dict) -> dict:
+    """AF2F and AF2FS (the same transposed-conv stack)."""
+    b = _StateDict(variables)
+    _decon(b, "", "decon", 5)
+    return b.sd
+
+
+def a2i_state_dict(variables: dict) -> dict:
+    b = _StateDict(variables)
+    for j, t in enumerate([0, 1, 3, 4]):            # MaxPools at 2, 5
+        b.conv(f"conv{j}/conv", f"audio_eocder.{t}.0")
+        b.norm(f"conv{j}/norm", f"audio_eocder.{t}.1")
+    _decon(b, "", "decon", 4)
+    return b.sd
+
+
+def na_net_state_dict(variables: dict) -> dict:
+    b = _StateDict(variables)
+    _decon(b, "", "decon", 3)
+    return b.sd
+
+
+def _sub(variables: dict, key: str) -> dict:
+    return {part: tree[key] for part, tree in variables.items()
+            if key in tree}
+
+
+def audio_feature_composite_state_dict(variables: dict) -> dict:
+    """AudioFeature (``models/aux.py``): con_encoder, emo_encoder,
+    decoder."""
+    sd = {}
+    for key, fn in (("con_encoder", ct_encoder_state_dict),
+                    ("emo_encoder", emotion_net_state_dict),
+                    ("decoder", af2f_state_dict)):
+        sd.update({f"{key}.{k}": v for k, v in fn(_sub(variables, key))
+                   .items()})
+    return sd
+
+
+def em_detector_state_dict(variables: dict) -> dict:
+    b = _StateDict(variables)
+    _emotion_trunk(b, neutral_mlp=False)
+    return b.sd
+
+
+def tfnet_state_dict(variables: dict) -> dict:
+    """TFNet of any mode: 'concat' ``lstm_two``; the AdaIN modes ``lstm``
+    and ``style_mod`` -> ``input_style``, ``style_mod1`` ->
+    ``output_style``."""
+    b = _StateDict(variables)
+    _atnet_trunk(b)
+    for path in ("lstm_two", "lstm"):
+        if path in b.params:
+            _lstm(b, path, path)
+    _decon(b, "decoder/", "decon", 5)
+    for path, name in (("style_mod", "input_style"),
+                       ("style_mod1", "output_style")):
+        if path in b.params:
+            b.linear(path, name)
+    return b.sd
+
+
+def _emotion_trunk(b: _StateDict, neutral_mlp: bool = True) -> None:
+    """Hourglass, ResNet trunk and classifier of the emotion models, with
+    the neutral keypoints' MLP (``fc_p``) unless ``neutral_mlp`` is
+    False."""
     b.hourglass("predictor", "predictor")
     b.conv("trunk/conv1", "conv1")
     b.norm("trunk/bn1", "bn1")
@@ -179,7 +409,8 @@ def _emotion_trunk(b: _StateDict) -> None:
             if "ds_conv" in b.params["trunk"][f"layer{li}_{bi}"]:
                 b.conv(f"{path}/ds_conv", f"{name}.downsample.0")
                 b.norm(f"{path}/ds_bn", f"{name}.downsample.1")
-    b.mlp("fc_p", "fc_p")
+    if neutral_mlp:
+        b.mlp("fc_p", "fc_p")
     b.linear("classify", "classify.last_fc")
 
 
@@ -249,12 +480,31 @@ def vgg_state_dict(variables: dict) -> dict:
     return b.sd
 
 
+# the networks no entry point builds, by the name ``state_dicts_from_jax``
+# takes their variables under
+AUXILIARY = {"stylegan2_synthesis": synthesis_state_dict,
+             "stylegan2_discriminator": stylegan2_discriminator_state_dict,
+             "tile_stylegan2_discriminator": tile_discriminator_state_dict,
+             "stylegan2_encoder": image_network_state_dict,
+             "stylegan2_decoder": image_network_state_dict,
+             "stylegan2_image_generator":
+                 stylegan2_image_generator_state_dict,
+             "ct_encoder": ct_encoder_state_dict,
+             "emotion_net": emotion_net_state_dict,
+             "af2f": af2f_state_dict, "af2f_s": af2f_state_dict,
+             "a2i": a2i_state_dict, "na_net": na_net_state_dict,
+             "em_detector": em_detector_state_dict,
+             "audio_feature_composite": audio_feature_composite_state_dict,
+             "tf_net": tfnet_state_dict}
+
+
 def state_dicts_from_jax(variables: dict, emo_type: str = "linear_3") -> dict:
-    """{'generator', 'kp_detector', 'kp_detector_a', 'audio_feature',
-    ['emo_detector'], ['discriminator'], ['vgg']} -> port ``state_dict``s;
-    the emotion model is EmotionMap for a 'map*' ``emo_type`` and EmotionK
-    otherwise.  The linear maps above also carry a gradient tree (given as
-    ``params``) to the port's names."""
+    """{'generator', 'kp_detector', 'kp_detector_a', 'audio_feature' (either
+    ``jaco_net``), ['emo_detector'], ['discriminator'], ['vgg'], and any of
+    ``AUXILIARY``} -> port ``state_dict``s; the emotion model is
+    EmotionMap for a 'map*' ``emo_type`` and EmotionK otherwise.  The
+    linear maps above also carry a gradient tree (given as ``params``) to
+    the port's names."""
     emotion = (emotion_map_state_dict if emo_type.startswith("map")
                else emotion_k_state_dict)
     convert = {"generator": generator_state_dict,
@@ -263,6 +513,6 @@ def state_dicts_from_jax(variables: dict, emo_type: str = "linear_3") -> dict:
                "audio_feature": atnet_state_dict,
                "emo_detector": emotion,
                "discriminator": discriminator_state_dict,
-               "vgg": vgg_state_dict}
+               "vgg": vgg_state_dict, **AUXILIARY}
     return {name: convert[name](v) for name, v in variables.items()
             if name in convert}

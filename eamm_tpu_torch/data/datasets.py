@@ -25,8 +25,8 @@ The port's copy of ``eamm_tpu/data/datasets.py``:
   pool decoding samples, a bounded queue of prefetched batches).
 
 Frames come from a ``frames.eammpack`` next to the PNGs when there is one
-(``data/packed.py``), else from the PNGs through imageio (the JAX
-package's libpng batch decoder is not ported).  The host draws from
+(``data/packed.py``), else from the PNGs through the libpng batch decoder
+(``data/native.py``; imageio where it cannot be built).  The host draws from
 Python's ``random`` and numpy's global state in the JAX package's order,
 so the same seeds give the same sample in both packages.
 """
@@ -47,21 +47,6 @@ EMOTIONS = ("angry", "contempt", "disgusted", "fear", "happy", "neutral",
             "sad", "surprised")
 
 
-def decode_pngs(paths: list[str], h: int, w: int) -> np.ndarray:
-    """PNGs -> [N, h, w, 3] float32 in [0, 1]; every file must be h x w."""
-    import imageio.v2 as imageio
-    out = np.empty((len(paths), h, w, 3), np.float32)
-    for i, p in enumerate(paths):
-        img = np.asarray(imageio.imread(p))
-        if img.ndim == 2:
-            img = np.stack([img] * 3, -1)
-        if img.shape[:2] != (h, w):
-            raise IOError(f"{p}: {img.shape[:2]} is not the window's "
-                          f"{(h, w)}")
-        out[i] = img[..., :3].astype(np.float32) * np.float32(1.0 / 255.0)
-    return out
-
-
 def _png_size(path: str) -> tuple[int, int]:
     """(h, w) from the PNG IHDR without decoding."""
     with open(path, "rb") as f:
@@ -74,12 +59,12 @@ def _png_size(path: str) -> tuple[int, int]:
 def _read_frames(paths: list[str], hw=None, uint8: bool = False) -> np.ndarray:
     """Window frame load: a ``frames.eammpack`` file next to the requested
     PNGs (``data/packed.py``) is served as a decode-free memmap slice;
-    everything else is decoded by imageio (``decode_pngs``).  hw=None
+    everything else is decoded by ``native.decode_batch``.  hw=None
     loads at the files' own resolution (reference semantics: clips are
     pre-cropped, never resized at load time).  uint8=True serves raw bytes
     (the device-augmentation upload format — a pure copy on the packed
     path; exact either way since PNGs store uint8)."""
-    from eamm_tpu_torch.data import packed
+    from eamm_tpu_torch.data import native, packed
 
     dtype = np.uint8 if uint8 else np.float32
 
@@ -96,7 +81,7 @@ def _read_frames(paths: list[str], hw=None, uint8: bool = False) -> np.ndarray:
     if not any(packs.values()):
         if hw is None:
             hw = _png_size(paths[0])
-        return from_f32(decode_pngs(paths, hw[0], hw[1]))
+        return from_f32(native.decode_batch(paths, hw[0], hw[1]))
 
     if hw is None:
         d0 = os.path.dirname(paths[0])
@@ -117,7 +102,7 @@ def _read_frames(paths: list[str], hw=None, uint8: bool = False) -> np.ndarray:
                 f"window size {tuple(hw)}")
         out[rows] = frames[..., :3]
     if png_rows:
-        out[png_rows] = from_f32(decode_pngs(
+        out[png_rows] = from_f32(native.decode_batch(
             [paths[i] for i in png_rows], hw[0], hw[1]))
     return out
 

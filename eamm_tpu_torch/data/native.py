@@ -1,17 +1,126 @@
-"""Uncompressed AVI writers (pure Python): the demo's video output, with
-the driving audio muxed in as a 16-bit PCM stream, playable without a
-codec or ffmpeg.
+"""The libpng batch decoder (ctypes) and the uncompressed AVI writers.
 
-Counterpart of ``eamm_tpu/data/native.py``'s ``write_avi_rgb`` and
-``write_avi_i420``, byte for byte the same files; the JAX package writes
-them with a C++ muxer when it builds and with this muxer otherwise.  The
-libpng batch decoder of that module is not ported.
+``decode_batch(paths, h, w)`` decodes PNGs into one float32 [N, h, w, 3]
+array through ``eamm_tpu_torch/native/batch_loader.cc``: libpng on worker
+threads, outside the GIL.  At first use the source is compiled with
+``g++`` into ``build/native/`` at the repository root (named by a hash of
+the source and the flags, as the CUDA kernels are) and loaded with ctypes.
+Without ``g++`` or libpng's headers the build fails once and every call
+decodes with imageio instead, bilinearly resized the same way when a
+file's size differs; ``native_available()`` says which decoder runs.
+This is host code: neither decoder touches the device.
+
+The AVI writers (pure Python) are the demo's video output, with the
+driving audio muxed in as a 16-bit PCM stream, playable without a codec
+or ffmpeg: ``write_avi_rgb`` and ``write_avi_i420`` write byte for byte
+the files of ``eamm_tpu/data/native.py``'s writers, which the JAX package
+writes with a C++ muxer when it builds and with this muxer otherwise.
 """
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import os
 import struct
+import subprocess
+import threading
+from pathlib import Path
 
 import numpy as np
+
+SOURCE = Path(__file__).resolve().parent.parent / "native" / "batch_loader.cc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+LIBS = ("-lpng", "-lz", "-lpthread")
+
+_lib = None
+_lib_error: str | None = None       # why the library is not there
+_lock = threading.Lock()
+
+
+def _target() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(
+        CXX_FLAGS + LIBS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libeamm_decode-{digest}.so"
+
+
+def _load():
+    """The decoder's library, built first if missing; None when it cannot
+    be built or loaded (then ``decode_batch`` uses imageio)."""
+    global _lib, _lib_error
+    with _lock:
+        if _lib is not None or _lib_error is not None:
+            return _lib
+        try:
+            target = _target()
+            if not target.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = target.with_suffix(f".{os.getpid()}.tmp")
+                subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS,
+                                "-o", str(tmp), str(SOURCE), *LIBS],
+                               check=True, capture_output=True, text=True)
+                os.replace(tmp, target)
+            lib = ctypes.CDLL(str(target))
+            lib.eamm_decode_batch.restype = ctypes.c_int
+            lib.eamm_decode_batch.argtypes = [
+                ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+                ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+                ctypes.c_int]
+            _lib = lib
+        except subprocess.CalledProcessError as e:
+            _lib_error = (e.stderr or "").strip()[-2000:] or str(e)
+        except OSError as e:
+            _lib_error = str(e)
+        return _lib
+
+
+def native_available() -> bool:
+    """True when ``decode_batch`` decodes with the native library."""
+    return _load() is not None
+
+
+def build_error() -> str | None:
+    """Why the native library could not be built or loaded (the
+    compiler's last output), or None when it is in use."""
+    _load()
+    return _lib_error
+
+
+def _decode_imageio(paths: list[str], h: int, w: int) -> np.ndarray:
+    import imageio.v2 as imageio
+
+    from eamm_tpu_torch.data.augmentation import _bilinear_sample
+    out = np.empty((len(paths), h, w, 3), np.float32)
+    for i, p in enumerate(paths):
+        img = np.asarray(imageio.imread(p))
+        if img.ndim == 2:
+            img = np.stack([img] * 3, -1)
+        img = img[..., :3].astype(np.float32) / 255.0
+        if img.shape[:2] != (h, w):
+            ys = (np.arange(h) + 0.5) * img.shape[0] / h - 0.5
+            xs = (np.arange(w) + 0.5) * img.shape[1] / w - 0.5
+            xg, yg = np.meshgrid(xs, ys)
+            img = _bilinear_sample(img, xg, yg, "replicate")
+        out[i] = img
+    return out
+
+
+def decode_batch(paths: list[str], h: int, w: int,
+                 n_threads: int = 4) -> np.ndarray:
+    """PNGs -> [N, h, w, 3] float32 in [0, 1], each bilinearly resized to
+    (h, w) when its size differs; raises IOError naming the first file
+    that fails."""
+    lib = _load()
+    if lib is None:
+        return _decode_imageio(paths, h, w)
+    out = np.empty((len(paths), h, w, 3), np.float32)
+    names = (ctypes.c_char_p * len(paths))(*[os.fsencode(p) for p in paths])
+    rc = lib.eamm_decode_batch(
+        names, len(paths), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        h, w, n_threads)
+    if rc != 0:
+        raise IOError(f"native decode failed for {paths[rc - 1]!r}")
+    return out
 
 
 def pcm16(audio, sample_rate: int = 16000):

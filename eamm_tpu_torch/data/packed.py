@@ -1,11 +1,13 @@
-"""Packed decode-free clip storage (the read side, and ``write_pack``).
+"""Packed decode-free clip storage.
 
 The port's copy of ``eamm_tpu/data/packed.py``: a ``frames.eammpack`` file
 in a clip directory holds its frames as raw uint8 pixels, so loading a
 window is a memmap slice, with no PNG decoding.  ``data/datasets.py``
-prefers a pack next to the requested PNGs.  Packing a dataset tree
-(``pack_clip`` / ``pack_tree``, the JAX CLI's ``preprocess pack``) is not
-ported yet (ROADMAP Queue 1); ``write_pack`` writes one file.
+prefers a pack next to the requested PNGs.  ``pack_clip`` packs one clip
+directory's ``<id>.png`` frames (decoded by ``data/native.py``),
+``pack_tree`` every clip directory under a root
+(``eamm-torch-preprocess pack``); ``write_pack`` writes one file.  The
+packs are byte for byte the JAX package's.
 
 ``frames.eammpack`` layout (little-endian), one file per clip directory::
 
@@ -42,6 +44,42 @@ def write_pack(out_path: str, ids: list[int], frames: np.ndarray) -> None:
         f.write(np.asarray(ids, "<u4").tobytes())
         f.write(np.ascontiguousarray(frames).tobytes())
     os.replace(tmp, out_path)  # atomic: readers never see a partial pack
+
+
+def pack_clip(clip_dir: str, decode=None) -> str | None:
+    """Pack every ``<id>.png`` in ``clip_dir`` into ``frames.eammpack``, in
+    ascending id order -> the pack's path, or None when the directory
+    holds no frame PNGs.  ``decode(paths)`` -> [n, h, w, 3] (float in
+    [0, 1] or uint8) defaults to the native batch decoder at the first
+    file's size."""
+    names = [f for f in os.listdir(clip_dir)
+             if f.endswith(".png") and f[:-4].isdigit()]
+    if not names:
+        return None
+    ids = sorted(int(f[:-4]) for f in names)
+    paths = [os.path.join(clip_dir, f"{i}.png") for i in ids]
+    if decode is None:
+        from eamm_tpu_torch.data import native
+        from eamm_tpu_torch.data.datasets import _png_size
+        frames = native.decode_batch(paths, *_png_size(paths[0]))
+    else:
+        frames = decode(paths)
+    out = os.path.join(clip_dir, PACK_NAME)
+    write_pack(out, ids, frames)
+    return out
+
+
+def pack_tree(root: str, verbose: bool = False) -> int:
+    """Pack every directory under ``root`` that holds frame PNGs -> the
+    number of packs written."""
+    count = 0
+    for dirpath, _dirnames, filenames in os.walk(root):
+        if any(f.endswith(".png") and f[:-4].isdigit() for f in filenames):
+            if pack_clip(dirpath) is not None:
+                count += 1
+                if verbose:
+                    print(f"packed {dirpath}")
+    return count
 
 
 class _Pack:

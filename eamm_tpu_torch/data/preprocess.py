@@ -1,8 +1,7 @@
-"""Host-side preprocessing for the demo: face crop and alignment, audio
-decode.
+"""Preprocessing: face crop and alignment, audio decode, head pose from
+frames, MFCC window files.
 
-Counterpart of ``eamm_tpu/data/preprocess.py`` (its pose estimate and MFCC
-export, which serve ``cli/preprocess``, are not ported).  Parity targets
+Counterpart of ``eamm_tpu/data/preprocess.py``.  Parity targets
 (ref:process_data.py, ref:demo.py:43-44,146-190,433-454):
 
 - ``crop_image``: 68 facial landmarks -> similarity transform (Umeyama) to
@@ -11,6 +10,11 @@ export, which serve ``cli/preprocess``, are not ported).  Parity targets
   every frame (``crop_image_tem`` / ``get_aligned_image``).
 - ``load_audio``: 16 kHz mono waveform (wav via scipy; other containers via
   ffmpeg when available).
+- ``estimate_pose_clip``: per-frame landmarks -> weak-perspective camera
+  fit -> the 7-vector pose (``data/pose.py``).
+- ``export_mfcc_windows``: the clip's MFCC windows ([N, 28, 13], cepstrum
+  0 kept) as one ``.npy``, computed by ``ops/mfcc.py`` on the caller's
+  device.
 
 Landmark detection is pluggable: dlib is used when importable (it is a C++
 dependency of the reference, not present in every image); otherwise pass
@@ -194,3 +198,48 @@ def load_audio(path: str, sr: int = 16000) -> np.ndarray:
         return load_audio(tmp.name, sr)
 
 
+def estimate_pose_clip(frames: np.ndarray,
+                       per_frame_landmarks=None) -> np.ndarray:
+    """Per-frame head pose [T, 7] of a clip: 68 landmarks per frame (given,
+    else dlib when importable, else the coarse fallback) -> the
+    weak-perspective camera fit and decomposition of
+    ``data.pose.pose_from_landmarks``.  frames [T, H, W, 3], float in
+    [0, 1] or uint8."""
+    from eamm_tpu_torch.data.pose import pose_from_landmarks
+
+    frames = np.asarray(frames)
+    template = load_template()
+    poses = []
+    for i, frame in enumerate(frames):
+        if per_frame_landmarks is not None:
+            lm = np.asarray(per_frame_landmarks[i])
+        else:
+            img = frame if frame.dtype == np.uint8 else \
+                (np.clip(frame, 0, 1) * 255).astype(np.uint8)
+            lm = detect_landmarks(img)
+        poses.append(pose_from_landmarks(lm, template))
+    return np.stack(poses)
+
+
+def export_mfcc_windows(audio_path: str, save_dir: str, name: str,
+                        device="cuda") -> str:
+    """The reference's per-clip MFCC file: the 16 kHz waveform padded with
+    1920 zeros at both ends, its MFCC rows (``ops.mfcc.mfcc`` on
+    ``device``), windows of 28 rows every 4 -> ``<save_dir>/<name>.npy``
+    [N, 28, 13] float32; returns its path."""
+    import torch
+
+    from eamm_tpu_torch.ops.mfcc import PAD_SAMPLES, mfcc
+
+    speech = load_audio(audio_path)
+    speech = np.concatenate([np.zeros(PAD_SAMPLES, np.float32), speech,
+                             np.zeros(PAD_SAMPLES, np.float32)])
+    feats = mfcc(torch.from_numpy(speech).to(device))
+    if feats.shape[0] >= 28:
+        windows = feats.unfold(0, 28, 4).transpose(1, 2).cpu().numpy()
+    else:
+        windows = np.array([])
+    os.makedirs(save_dir, exist_ok=True)
+    out = os.path.join(save_dir, name + ".npy")
+    np.save(out, windows)
+    return out

@@ -60,6 +60,7 @@ from eamm_tpu_torch import config as cfg
 from eamm_tpu_torch.convert import state_dicts_from_jax
 from eamm_tpu_torch.models import EmotionK, EmotionMap
 from eamm_tpu_torch.models.kp_detector import KPHead
+from eamm_tpu_torch.models.stylegan2 import draw_parameters
 from eamm_tpu_torch.ops.colorspace import (pack_yuv420_np, rgb_to_yuv420,
                                            unpack_yuv420, yuv420_to_rgb)
 from eamm_tpu_torch.ops.filters import one_euro_filter, one_euro_filter_np
@@ -194,7 +195,8 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
     LSTM weights and biases U(+-1/sqrt(fan_in)) (the torch defaults), BN
     affine 1 and 0, BN running mean U(-0.5, 0.5) and variance U(0.5, 2)
     (random statistics, so eval BN does real work), keypoint Jacobian heads
-    zero weight and identity bias (the reference initialization)."""
+    zero weight and identity bias (the reference initialization), StyleGAN2
+    layers as the JAX package draws them (``stylegan2.draw_parameters``)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d,
@@ -212,6 +214,7 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
                 m.running_mean.uniform_(-0.5, 0.5, generator=generator)
                 m.running_var.uniform_(0.5, 2.0, generator=generator)
+        draw_parameters(module, generator)
         for m in module.modules():
             if isinstance(m, (KPHead, EmotionMap)):
                 m.reset_jacobian()
@@ -1056,8 +1059,10 @@ class EammPipeline:
         audio {audio_feature, kp_detector_a}, emotion {emo_detector}.  Each
         model loads strictly on the CPU, its ``module.`` prefixes dropped,
         then moves to the options' device.  The emotion file's ``final_4``
-        stack, which no head runs and EmotionK does not hold, is skipped
-        and named in ``ignored_keys``."""
+        stack, which no head runs and EmotionK does not hold, and the
+        audio file's decoder of the other ``jaco_net``
+        (``compat.ATNET_UNUSED``) are skipped and named in
+        ``ignored_keys``."""
         options = options or PipelineOptions()
         sds = compat.model_state_dicts(
             *(compat.load_torch_checkpoint(p)
@@ -1066,8 +1071,7 @@ class EammPipeline:
         ignored = {}
         for name, model in models.items():
             sd, ignored[name] = compat.split_unused(
-                sds[name], model,
-                compat.EMOTION_K_UNUSED if name == "emo_detector" else ())
+                sds[name], model, compat.unused_prefixes(name, model))
             model.load_state_dict(sd)
         pipe = cls(config, options=options, models=models)
         pipe.ignored_keys = {k: v for k, v in ignored.items() if v}

@@ -103,7 +103,7 @@ class _EmotionBase(nn.Module):
 
     def __init__(self, block_expansion: int, num_channels: int,
                  max_features: int, num_blocks: int, scale_factor: float,
-                 num_classes: int):
+                 num_classes: int, neutral_mlp: bool = True):
         super().__init__()
         self.predictor = Hourglass(block_expansion, num_channels, num_blocks,
                                    max_features)
@@ -119,7 +119,8 @@ class _EmotionBase(nn.Module):
                 BasicBlock(inplanes, planes, stride, stride != 1),
                 BasicBlock(planes, planes)))
             inplanes = planes
-        self.fc_p = _mlp(NUM_KP * 126, 1024, 512)
+        if neutral_mlp:            # EmDetector (models/aux.py) has none
+            self.fc_p = _mlp(NUM_KP * 126, 1024, 512)
         self.classify = _Classify(num_classes)
         self.scale_factor = scale_factor
 

@@ -106,8 +106,10 @@ def load_frozen_torch(models: dict, fomm_checkpoint: str | None = None,
     """Weights from the reference's checkpoints: the FOMM file's
     kp_detector and generator (where the models hold one) and
     discriminator (when the GAN fine-tune has one and the file carries
-    it), the audio file's audio_feature and kp_detector_a."""
-    from eamm_tpu_torch.compat import load_torch_checkpoint, strip_prefix
+    it), the audio file's audio_feature (without the other ``jaco_net``'s
+    decoder, ``compat.ATNET_UNUSED``) and kp_detector_a."""
+    from eamm_tpu_torch.compat import (load_torch_checkpoint, split_unused,
+                                       strip_prefix, unused_prefixes)
     if fomm_checkpoint:
         fomm = load_torch_checkpoint(fomm_checkpoint)
         for name in ("generator", "kp_detector"):
@@ -119,7 +121,9 @@ def load_frozen_torch(models: dict, fomm_checkpoint: str | None = None,
     if audio_checkpoint:
         audio = load_torch_checkpoint(audio_checkpoint)
         for name in ("audio_feature", "kp_detector_a"):
-            models[name].load_state_dict(strip_prefix(audio[name]))
+            sd, _ = split_unused(strip_prefix(audio[name]), models[name],
+                                 unused_prefixes(name, models[name]))
+            models[name].load_state_dict(sd)
 
 
 def _check_options(tp: dict) -> tuple[int, int]:

@@ -52,7 +52,14 @@ ENTRY_MODULES = ["eamm_tpu_torch.serve", "eamm_tpu_torch.serve_http",
                  "eamm_tpu_torch.ops.tps", "eamm_tpu_torch.ops.warp",
                  "eamm_tpu_torch.train.visualizer",
                  "eamm_tpu_torch.utils.metrics",
-                 "eamm_tpu_torch.infer.animate"]
+                 "eamm_tpu_torch.infer.animate",
+                 # the gan A2FD, the image and auxiliary networks, the
+                 # preprocessing host side
+                 "eamm_tpu_torch.models.stylegan2",
+                 "eamm_tpu_torch.models.aux", "eamm_tpu_torch.ops.adain",
+                 "eamm_tpu_torch.data.pose",
+                 "eamm_tpu_torch.utils.profiling",
+                 "eamm_tpu_torch.cli.preprocess"]
 
 
 @pytest.fixture(scope="module", autouse=True)

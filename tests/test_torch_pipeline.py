@@ -68,12 +68,14 @@ def test_bf16_render_tracks_f32(port):
 
 
 def test_unported_options_raise(port):
-    """What is still to port raises, naming its ROADMAP item: ATNet's 'gan'
-    Jacobian decoder.  render_stream refuses adapt_scale, as the JAX
-    package's does; the whole-clip render takes it (the staged route)."""
+    """What the port does not build raises: a ``jaco_net`` other than
+    'cnn' and 'gan' (the gan decoder is tests/test_torch_atnet_gan.py's),
+    as the JAX package's ATNet does.  render_stream refuses adapt_scale,
+    as the JAX package's does; the whole-clip render takes it (the staged
+    route)."""
     src, wav, pose, _ = _inputs()
-    config = {**TINY_CONFIG, "train_params": {"jaco_net": "gan"}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    config = {**TINY_CONFIG, "train_params": {"jaco_net": "vae"}}
+    with pytest.raises(ValueError, match="jaco_net"):
         EammPipeline.from_random(config, options=PipelineOptions(**OPTS))
     staged = EammPipeline(TINY_CONFIG, models=port.models,
                           options=PipelineOptions(adapt_scale=True, **OPTS))
