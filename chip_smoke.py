@@ -77,8 +77,8 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    - batched: ``render_batch_uint8`` of 4 identities of 4, 3.5, 3 and 2 s,
      in float32 each within 1 count of its own ``render_uint8``; in
      bfloat16 ``render_batch_yuv420`` in 2 segments bitwise equal to one;
-   - entry points: the shared warp and the fused keypoint expectation,
-     which no model calls, once each at the shapes of phase 6.
+   - entry points: the shared warp, the fused keypoint expectation and
+     K6, which no model calls, once each at the shapes of phase 6.
    Peak device memory of each path.
 5b. serving, at FULL_CONFIG from the main path's weights:
    - checkpoints: the five models saved as the reference's three
@@ -108,21 +108,21 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
      difference between two calls), launches per run.
 7. the frozen artifact (``eamm_tpu_torch/infer/export.py``), after 5b:
    the main path's models at FULL_CONFIG, bfloat16, yuv420, frame_chunk
-   32, exported on the card at batch 4, one frame bucket of 64 (the 2 s
-   requests' 50 frames), emotion bucket 32, 2 stream segments and
-   unbounded chunks of 64 frames with the length policy at 64 (11
+   8, exported on the card at batch 4, one frame bucket of 16 (the 0.6 s
+   requests' 14 frames), emotion bucket 8, 2 stream segments and
+   unbounded chunks of 16 frames with the length policy at 16 (11
    programs; each program's export seconds, the file's bytes); served
    by ``eamm-torch-serve --artifact`` (``cli/serve.py`` ``main``), whose
    load of the file is timed; every program run on inputs the artifact's
    host side makes from seeded requests and held bitwise to the live
    pipeline's function on the same inputs, with K1-K3 launches per
    program; each route on the server's ``ArtifactPipeline`` (a batch of 4
-   clips of 2 s, an emotional 2 s clip with 20 raw frames, a 2 s stream,
-   a 5 s clip through the unbounded chunks) driven with launch counts
-   (``artifact <route>`` requests: each of K1-K3 must launch); the batch
-   call bitwise the live pipeline's same call, both timed in turns (wall
-   ms, artifact, live, live, artifact; three rounds); then the same kinds
-   of request at once from client threads over HTTP, every call the
+   clips of 0.6 s, an emotional 0.6 s clip with 6 raw frames, a 0.6 s
+   stream, a 1.25 s clip through the unbounded chunks) driven with launch
+   counts (``artifact <route>`` requests: each of K1-K3 must launch); the
+   batch call bitwise the live pipeline's same call, both timed in turns
+   (wall ms, artifact, live, live, artifact; three rounds); then the same
+   kinds of request at once from client threads over HTTP, every call the
    worker made made again and held to its result bit for bit, each
    client's payload to its part of it, with latencies and the peak
    device memory while serving beside phase 5b's.
@@ -169,7 +169,8 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    emotional clip each, packed), from FOMM and audio checkpoints written
    from seeded weights: ``linear_4`` with the host augmentation, with
    the device augmentation (then one step resumed with ``--checkpoint
-   latest`` under ``torch.profiler``) and ``map_4``, PART2_STEPS steps
+   latest`` under ``torch.profiler``) and ``map_4`` with the device
+   augmentation, PART2_STEPS steps
    each with launch counts zeroed just before and read just after (K3
    must launch, and K3b under ``map_4``), each step's wall seconds, peak
    memory, every loss finite, emo_detector changed and the frozen models
@@ -195,10 +196,27 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    gan artifact program (batch 1, bucket 32) bitwise its live call with
    cuDNN deterministic; ``eamm-torch-run --mode train_part1`` with
    ``jaco_net: gan`` at the YAML's 8 x 16 batch, 2 steps and one resumed
-   (K3 and K3b must launch); the native PNG decoder (built or not, a
-   seeded batch against imageio); one TINY gan part1 gradient on the card
-   against the CPU's float64 as phase 8's, K3b's Jacobian-map gradient
-   x1.1 refused.
+   (K3 and K3b must launch); the PNG decoders (which route
+   ``decode_batch`` takes; a seeded batch of grey, RGB and RGBA files,
+   rows under all five filters, through the standard library's zlib
+   route, bitwise the images and, where the native library built, its
+   decode); one TINY gan part1 gradient on the card against the CPU's
+   float64 as phase 8's, K3b's Jacobian-map gradient x1.1 refused.
+11. K6 and the mesh (after phase 10): K6 (``grid_sample_twolevel_b16``,
+   the warp with its y pass rounded to bfloat16) against its plain version
+   on the card, bfloat16 and float32 images at its own shape ([1,64,64,256]
+   by [128,64,64,2], grid U(-1.05, 1.05)), at Bi = 2 and over ragged
+   13 x 17 outputs: bitwise, or within one bfloat16 ulp at the image's
+   scale (each line counts the elements that differ); then a process
+   group of one rank over NCCL (``parallel/mesh.py``): the TINY
+   ``train_part1`` gradient with BatchNorm over the global batch and the
+   gradients all-reduced, held to the CPU's float64 step as phase 8's
+   (K3b's Jacobian-map gradient x1.1 refused); a neutral 4 s clip through
+   ``use_mesh([cuda:0])`` and with ``time_shard=True``, and a batch of 2
+   through the mesh, each bitwise the unmeshed call (K1-K3 must launch);
+   ``eamm-torch-run --mode train_part1`` under torchrun's variables at
+   FULL_CONFIG and the YAML's batch, 2 steps (K3 and K3b must launch):
+   step seconds, peak memory and losses beside phase 8's unsharded run.
 6. kernel times at the main-path shapes: the kernel, its plain version,
    one PyTorch library call computing the same function where there is
    one, and the bound (the larger of bytes at 3.35 TB/s and operations at
@@ -228,14 +246,17 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    also counts the image gradient's float32 accumulator as zeroed, read
    and written once per element); K3b also at part2's ``map_4`` shape
    (256 images of 4 rows) with its plain version and bound
-   (``timing.map_4``).
+   (``timing.map_4``).  K6 at its own shape in the same turns as K1 on the
+   same inputs (``timing.warp_wide_ms``), with F.grid_sample (which rounds
+   once: not the same function), the store-only kernel and the eager
+   calls.
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line
 (with the path whose launches each row counts, the launches on every
 request by path, on every serving route, per training step of each
 mode, per part2 step of each run, per evaluation mode and visualizer
-call and on phase 10's gan paths; the backward rows count the fine-tune
-run), and last
+call, on phase 10's gan paths and on phase 11's mesh paths; the
+backward rows count the fine-tune run), and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -258,6 +279,7 @@ import torch.nn.functional as F
 
 from eamm_tpu_torch import config as cfg
 from eamm_tpu_torch import kernels
+from eamm_tpu_torch.data.native import read_png
 from eamm_tpu_torch.infer import EammPipeline, PipelineOptions
 from eamm_tpu_torch.infer.pipeline import reset_parameters
 from eamm_tpu_torch.models.audio import deconv_decoder
@@ -352,6 +374,10 @@ KERNELS = {
                              kpx.kp_expectation_fused_plain,
                              "eamm_tpu_torch/csrc/kp_expectation.cu",
                              "eamm_tpu/ops/kp_pallas.py:79"),
+    "warp_wide_b16": (warp_cuda.grid_sample_twolevel_b16,
+                      warp_cuda.grid_sample_twolevel_b16_plain,
+                      "eamm_tpu_torch/csrc/warp.cu",
+                      "benchmarks/bench_warp_variants.py:50"),
 }
 RENDER_KERNELS = ("warp_wide", "warp_narrow", "kp_expectation")
 # the backward kernels of training; the TPU package differentiates XLA's
@@ -1191,15 +1217,19 @@ def capture_warp_inputs(pipe: EammPipeline, seconds: float = 10.0,
 
 
 def entry_points() -> dict:
-    """The shared warp and the fused keypoint expectation through their
-    own entry points (no model calls them)."""
+    """The shared warp, the fused keypoint expectation and K6 through
+    their own entry points (no model calls them)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     image, grid = warp_case(1, 32, (64, 64), 256, torch.float32, gen)
     pred, jmap, temp = kp_case(256, gen)
-    _, launches = drive("entry points", ("warp_shared", "kp_expectation_fused"),
+    k6_image, k6_grid = k6_case(1, K6_B, (64, 64), torch.bfloat16, gen)
+    _, launches = drive("entry points", ("warp_shared", "kp_expectation_fused",
+                                         "warp_wide_b16"),
                         lambda: (warp_cuda.grid_sample_shared(image[0], grid),
                                  kpx.kp_expectation_fused(pred, jmap, temp,
-                                                          True)))
+                                                          True),
+                                 warp_cuda.grid_sample_twolevel_b16(
+                                     k6_image, k6_grid)))
     return launches
 
 
@@ -1767,13 +1797,19 @@ def serving_phase(pipe: EammPipeline, device: str = "cuda") -> dict:
 
 # ---------------------------------------------------------------- phase 7
 
-# the artifact's frame bucket (the 2 s requests' 50 frames ride it), its
-# unbounded chunk and length policy, its segments, its emotion bucket
-ARTIFACT_FRAMES = 64
+# the artifact's frame bucket (the 0.6 s requests' 14 frames ride it), its
+# unbounded chunk and length policy, its segments, its emotion bucket and
+# the emotional requests' raw frames; the live pipeline decodes chunks of
+# ARTIFACT_CHUNK frames.  Exporting and loading unroll the one-euro loops
+# over the bucket's frames: 64 frames and 32 emotion frames took 222 s
+# to export and 98 s to load on the card's host (PR 11), so 16 and 8
+ARTIFACT_FRAMES = 16
+ARTIFACT_CHUNK = 8
 ARTIFACT_SEGMENTS = 2
-ARTIFACT_EMO_FRAMES = 32
-ARTIFACT_SECONDS = 2.0
-ARTIFACT_LONG_SECONDS = 5.0     # 125 frames: two unbounded chunks
+ARTIFACT_EMO_FRAMES = 8
+ARTIFACT_EMOTION_CLIP = 6
+ARTIFACT_SECONDS = 0.6
+ARTIFACT_LONG_SECONDS = 1.25    # 31 frames: two unbounded chunks
 ARTIFACT_ROUTES = ("coalesced", "emotional", "stream", "unbounded")
 PEAKS: dict = {}                # peak device memory of phase 5b's serving
 
@@ -1782,7 +1818,8 @@ def artifact_live(pipe: EammPipeline, device: str = "cuda") -> EammPipeline:
     """The pipeline phase 7 exports: ``pipe``'s models in bfloat16 decode,
     yuv420, with the artifact's segments, chunks and length policy."""
     return EammPipeline(FULL_CONFIG, models=pipe.models, options=PipelineOptions(
-        frame_chunk=32, time_bucket=32, compute_dtype=torch.bfloat16,
+        frame_chunk=ARTIFACT_CHUNK, time_bucket=ARTIFACT_CHUNK,
+        compute_dtype=torch.bfloat16,
         transfer_format="yuv420", overlap_segments=ARTIFACT_SEGMENTS,
         segment_frames=ARTIFACT_FRAMES, stream_policy_frames=ARTIFACT_FRAMES,
         device=device))
@@ -1798,7 +1835,7 @@ def hold_programs(art, live: EammPipeline) -> dict:
     _, tp, src, win, pose = art._prepare_single(
         *clip_inputs(ARTIFACT_SECONDS, 700))
     emo = art.meta["emotional"]
-    frames, u = art._emotion_inputs(emotion_clip(20, 7),
+    frames, u = art._emotion_inputs(emotion_clip(ARTIFACT_EMOTION_CLIP, 7),
                                     emo["emo_frame_buckets"],
                                     emo["frames_dtype"], cut=tp)
     up, index = frames.shape[0], art._index(0, tp, u)
@@ -1856,7 +1893,8 @@ def hold_programs(art, live: EammPipeline) -> dict:
 
 def artifact_requests(seed: int) -> dict:
     """Phase 7's requests: 4 neutral clips (a coalesced dispatch), one
-    emotional with 20 raw frames, a stream, a long clip."""
+    emotional with ARTIFACT_EMOTION_CLIP raw frames, a stream, a long
+    clip."""
     reqs = {f"coalesced.{i}": clip_inputs(ARTIFACT_SECONDS, seed + i)
             for i in range(4)}
     reqs["emotional"] = clip_inputs(ARTIFACT_SECONDS, seed + 4)
@@ -1944,7 +1982,7 @@ def _artifact_phase(pipe: EammPipeline, device: str) -> dict:
                  launches=programs)
             reqs = artifact_requests(720)
             batch = [reqs[f"coalesced.{i}"] for i in range(4)]
-            video = emotion_clip(20, 8)
+            video = emotion_clip(ARTIFACT_EMOTION_CLIP, 8)
             routes = {
                 "coalesced": (lambda: art_pipe.render_batch_yuv420(
                     *zip(*batch)), ARTIFACT_SECONDS),
@@ -2246,34 +2284,6 @@ def train_entry_point(mode: str, root: str, work: str,
     return result
 
 
-def read_png(path: str) -> np.ndarray:
-    """An 8-bit RGB PNG with unfiltered rows (what ``train/visualizer.py``
-    writes) -> [H, W, 3] uint8."""
-    import struct
-    import zlib
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise AssertionError(f"{path}: not a PNG")
-    pos, idat, shape = 8, b"", None
-    while pos < len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if kind == b"IHDR":
-            w, h, depth, color = struct.unpack(">IIBB", body[:10])
-            if (depth, color) != (8, 2):
-                raise AssertionError(f"{path}: depth {depth} color {color}")
-            shape = (h, w)
-        elif kind == b"IDAT":
-            idat += body
-        pos += 12 + n
-    h, w = shape
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    if rows[:, 0].any():
-        raise AssertionError(f"{path}: filtered rows")
-    return rows[:, 1:].reshape(h, w, 3)
-
-
 class CountedVisualizer:
     """Wrap the training loop's ``visualize_checkpoint`` while in use:
     each call's launches (the counts' difference across it, the outer
@@ -2349,17 +2359,25 @@ def planted_fault(entry: str, scale: float):
 
 def step_gradients(cfg: dict, batch: dict, seed: int, where: str,
                    dtype: torch.dtype,
-                   mode: str = "train_part1_fine_tune") -> dict:
+                   mode: str = "train_part1_fine_tune",
+                   synced: bool = False, keep: dict | None = None) -> dict:
     """One ``mode`` gradient (and, in the fine-tune, its discriminator's)
     on ``where`` in ``dtype``: the metrics, each trained leaf's gradient
     and the trained models' BatchNorm statistics, in float64 on the
-    CPU."""
+    CPU.  ``synced``: a distributed run's step (its process group joined
+    by the caller): BatchNorm over the global batch, the ranks' states
+    checked equal, the gradients all-reduced.  ``keep`` receives the
+    state."""
+    from eamm_tpu_torch.parallel import check_replicated, sync_batchnorm
     from eamm_tpu_torch.train import steps as S
     from eamm_tpu_torch.train.loop import build_models
     from eamm_tpu_torch.train.optim import make_optimizer
     tp = cfg["train_params"]
     fine_tune = mode == "train_part1_fine_tune"
     models = build_models(cfg, mode, fine_tune, seed, where)
+    if synced:
+        for m in models.values():
+            sync_batchnorm(m)
     # the Jacobian heads start at zero weights (an identity Jacobian, a
     # Jacobian loss of rounding noise): give them the same small random
     # weights on every side
@@ -2371,8 +2389,12 @@ def step_gradients(cfg: dict, batch: dict, seed: int, where: str,
                 *w.shape).astype(np.float32)))
     for m in models.values():
         m.to(dtype)
+    if synced:
+        check_replicated(models, where)
     state = S.init_part1_state(models, make_optimizer, fine_tune,
                                make_optimizer if fine_tune else None)
+    if keep is not None:
+        keep["state"] = state
     b = S.to_device(batch, where)
     metrics, gen_out = S.part1_grads(state, tp, b)
     if fine_tune:
@@ -2517,18 +2539,20 @@ def cpu_vs_card_step(seed: int = 0, device: str = "cuda",
 
 
 def step_inputs(seed: int = 0, batch_size: int = 2, jaco_net: str = "cnn",
-                mode: str = "train_part1_fine_tune") -> tuple[dict, dict]:
+                mode: str = "train_part1_fine_tune",
+                frames: int = 5) -> tuple[dict, dict]:
     """The config (TINY_CONFIG widths, one discriminator scale) and the
-    seeded batch of ``cpu_vs_card_step``."""
+    seeded batch of ``cpu_vs_card_step`` (``frames`` a clip)."""
     cfg = train_config(mode, "", TINY_CONFIG, batch_size=batch_size,
                        scales=[0.25], jaco_net=jaco_net)
     cfg["model_params"]["discriminator_params"]["scales"] = [0.25]
     rng = np.random.RandomState(seed)
     B = batch_size
+    T = frames
     batch = {"example_image": rng.rand(B, 256, 256, 3).astype(np.float32),
-             "driving": rng.rand(B, 5, 256, 256, 3).astype(np.float32),
-             "driving_audio": rng.randn(B, 5, 28, 12).astype(np.float32),
-             "driving_pose": rng.randn(B, 5, 6).astype(np.float32)}
+             "driving": rng.rand(B, T, 256, 256, 3).astype(np.float32),
+             "driving_audio": rng.randn(B, T, 28, 12).astype(np.float32),
+             "driving_pose": rng.randn(B, T, 6).astype(np.float32)}
     return cfg, batch
 
 
@@ -2671,10 +2695,12 @@ PART2_PARAMS = {
 PART2_ROWS = 16 * 16            # the YAML's batch x 16 frames: images a step
 PART2_STEPS = 3                 # per run; the first warms up
 # (name, type, device augmentation, resumed): the YAML's linear_4 with the
-# host and the device augmentation, map_4 by override
+# host and the device augmentation, map_4 by override on the device one
+# (the host augmentation waits ~10 s a batch on the loader: one host run
+# reads it)
 PART2_RUNS = (("linear_4 host", "linear_4", False, False),
               ("linear_4 device", "linear_4", True, True),
-              ("map_4 host", "map_4", False, False))
+              ("map_4 device", "map_4", True, False))
 PART2_KERNELS = {"linear_4": ("kp_expectation",),
                  "map_4": ("kp_expectation", "kp_expectation_backward")}
 EVAL_VIDEOS = 2
@@ -3169,42 +3195,76 @@ def gan_artifact(gan: EammPipeline, work: str, device: str = "cuda") -> dict:
     return launches
 
 
+def write_png_rows(path: str, image: np.ndarray) -> None:
+    """An 8-bit grey, RGB or RGBA PNG of ``image`` [H, W, 1 | 3 | 4] by
+    the standard library, row y filtered by filter y % 5 (None, Sub, Up,
+    Average, Paeth), so that a decoder has to undo all five."""
+    import struct
+    import zlib
+    h, w, bpp = image.shape
+    rows = image.reshape(h, w * bpp).astype(np.int64)
+    body, prev = bytearray(), np.zeros(w * bpp, np.int64)
+    for y in range(h):
+        line, kind = rows[y], y % 5
+        left = np.concatenate([np.zeros(bpp, np.int64), line[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+        p = left + prev - upleft
+        pa, pb, pc = (np.abs(p - left), np.abs(p - prev),
+                      np.abs(p - upleft))
+        paeth = np.where((pa <= pb) & (pa <= pc), left,
+                         np.where(pb <= pc, prev, upleft))
+        pred = (0, left, prev, (left + prev) // 2, paeth)[kind]
+        body.append(kind)
+        body += bytes(((line - pred) & 255).astype(np.uint8))
+        prev = line
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    color = {1: 0, 3: 2, 4: 6}[bpp]
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0,
+                                             0, 0))
+                + chunk(b"IDAT", zlib.compress(bytes(body)))
+                + chunk(b"IEND", b""))
+
+
 def native_decoder_check(work: str) -> dict:
-    """Whether the native PNG decoder built, and a seeded batch of 8
-    64x48 PNGs (``train/visualizer.py``'s writer) decoded, held within
-    1e-6 to imageio's reading (``read_png`` where imageio is missing), as
-    the JAX package's test holds its decoder.  Without the library and
-    without imageio nothing can decode, and the line says so."""
+    """Which route ``decode_batch`` takes here (the native library, else
+    imageio, else the standard library's zlib), and a seeded batch of 9
+    64x48 PNGs (grey, RGB and RGBA, rows filtered by all five filters,
+    ``write_png_rows``) decoded through the zlib route, held bitwise to
+    the images written (scaled by float32 1/255, grey repeated to RGB,
+    alpha dropped); where the library built, its decode of the batch
+    bitwise the zlib route's too."""
     from eamm_tpu_torch.data import native
-    from eamm_tpu_torch.train.visualizer import write_png
     rng = np.random.RandomState(12)
-    images = (rng.rand(8, 64, 48, 3) * 255).astype(np.uint8)
-    paths = []
-    for i, img in enumerate(images):
+    paths, want = [], []
+    for i in range(9):
+        c = (1, 3, 4)[i % 3]
+        img = (rng.rand(64, 48, c) * 255).astype(np.uint8)
         paths.append(os.path.join(work, f"{i}.png"))
-        write_png(paths[-1], img)
+        write_png_rows(paths[-1], img)
+        rgb = img[..., :3] if c >= 3 else np.repeat(img, 3, axis=2)
+        want.append(rgb.astype(np.float32) * (np.float32(1) / np.float32(255)))
     built = native.native_available()
-    has_imageio = importable("imageio")
-    result = {"built": built, "decoder": "native" if built else "imageio",
-              "reference": "imageio" if has_imageio else "read_png",
-              "build_error": native.build_error()}
-    if not built and not has_imageio:
-        emit("native_decoder", **result, decoded=False)
-        return result
+    result = {"built": built, "route": native.route(),
+              "build_error": native.build_error(), "files": len(paths),
+              "channels": [1, 3, 4]}
     t0 = time.perf_counter()
-    out = native.decode_batch(paths, 64, 48)
+    out = native.decode_zlib(paths, 64, 48)
     result["seconds"] = time.perf_counter() - t0
-    if has_imageio:
-        import imageio.v2 as imageio
-        ref = np.stack([np.asarray(imageio.imread(p))[..., :3]
-                        for p in paths])
-    else:
-        ref = np.stack([read_png(p) for p in paths])
-    result["max_abs_err"] = float(np.abs(
-        out - ref.astype(np.float32) / 255.0).max())
-    emit("native_decoder", **result, decoded=True)
-    if result["max_abs_err"] > 1e-6:
-        raise AssertionError(f"native decoder: {result}")
+    result["decoded"] = True
+    result["max_abs_err"] = float(np.abs(out - np.stack(want)).max())
+    if built:
+        result["native_bitwise"] = bool(np.array_equal(
+            native.decode_batch(paths, 64, 48).view(np.uint32),
+            out.view(np.uint32)))
+    emit("native_decoder", **result)
+    if result["max_abs_err"] != 0 or result.get("native_bitwise") is False:
+        raise AssertionError(f"the zlib PNG route: {result}")
     return result
 
 
@@ -3243,6 +3303,204 @@ def gan_phase(cnn: EammPipeline, device: str = "cuda") -> dict:
     emit("gan_phase", seconds=time.perf_counter() - t_phase,
          card=card_line())
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------- phase 11
+
+K6_B = 128                      # K6's own shape: one 128-frame chunk
+
+
+def k6_case(Bi: int, B: int, hw: tuple[int, int], dtype: torch.dtype,
+            gen: torch.Generator):
+    """A random [Bi,64,64,256] image in ``dtype`` and a [B,*hw,2] grid in
+    U(-1.05, 1.05) in the image dtype (K6's bench passes bfloat16 grids)."""
+    image = torch.randn((Bi, 64, 64, 256), generator=gen, device="cuda"
+                        ).to(dtype)
+    grid = torch.rand((B, *hw, 2), generator=gen, device="cuda") * 2.1 - 1.05
+    return image, grid.to(dtype)
+
+
+def k6_parity() -> float:
+    """K6 against its plain version on the card: bfloat16 and float32
+    images at K6's own shape, at Bi = 2 and over ragged 13 x 17 outputs.
+    Bitwise, or within one bfloat16 ulp at the image's scale where a sum
+    rounds otherwise (each line counts such elements); returns the largest
+    |error|."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    wrapper, plain = KERNELS["warp_wide_b16"][:2]
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for Bi, B, hw in ((1, K6_B, (64, 64)), (2, K6_B, (64, 64)),
+                          (2, 4, (13, 17))):
+            image, grid = k6_case(Bi, B, hw, dtype, gen)
+            got, want = wrapper(image, grid), plain(image, grid)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            ulp = 2.0 ** (np.floor(np.log2(image.float().abs().max().item()))
+                          - 7)
+            line = {"dtype": str(dtype), "image": list(image.shape),
+                    "grid": list(grid.shape), "max_abs_err": err.max().item(),
+                    "differ": int((err > 0).sum().item()),
+                    "elements": got.numel(), "bf16_ulp_at_scale": ulp}
+            emit("k6_parity", **line)
+            if line["max_abs_err"] > ulp:
+                raise AssertionError(f"K6 strays from its plain version: "
+                                     f"{line}")
+            worst = max(worst, line["max_abs_err"])
+            del got, want, err
+    return worst
+
+
+MESH_SECONDS = 4.0               # the meshed renders' clip
+MESH_TRAIN_STEPS = 2             # the distributed loop's steps at FULL
+MESH_FAULTS = {k: FAULTS[k] for k in ("K3b_grad_jmap_x1.1",)}
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback for a process group's rendezvous."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_variables(port: int):
+    """torchrun's variables of a one-process group (rank 0 of 1) while the
+    block runs, as ``eamm-torch-run`` reads them."""
+    names = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update(names)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def mesh_step(device: str = "cuda") -> dict:
+    """The TINY ``train_part1`` gradient of a distributed run at world
+    size 1 over NCCL (BatchNorm over the global batch by one all-reduce a
+    layer, the gradients all-reduced) on the card, held to the CPU's
+    float64 step by ``held_step``'s per-leaf bounds, K3b's planted fault
+    refused.  The CPU sides run before the group exists (its NCCL
+    backend takes CUDA tensors only)."""
+    import torch.distributed as dist
+    from eamm_tpu_torch.parallel import init_distributed
+    cfg, batch = step_inputs(0, 2, "cnn", "train_part1")
+    ref = step_gradients(cfg, batch, 0, "cpu", torch.float64, "train_part1")
+    cpu32 = [on_threads(n, lambda: step_gradients(
+        cfg, batch, 0, "cpu", torch.float32, "train_part1"))
+        for n in FLOAT32_THREADS]
+    init_distributed(0, 1, f"tcp://127.0.0.1:{free_port()}", device)
+    try:
+        return held_step("mesh_train_cpu_vs_card", ref, cpu32,
+                         lambda: step_gradients(cfg, batch, 0, device,
+                                                torch.float32, "train_part1",
+                                                synced=True),
+                         MESH_FAULTS if device == "cuda" else {})
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_renders(pipe: EammPipeline, device: str = "cuda:0") -> dict:
+    """A neutral 4 s clip through ``use_mesh([cuda:0])`` and with
+    ``time_shard=True``, and a batch of 2 through the mesh, each bitwise
+    the same call on ``pipe``; K1-K3 must launch on each.  -> path ->
+    launch counts."""
+    clip = clip_inputs(MESH_SECONDS, 30)
+    want = pipe.render_uint8(*clip, add_emo=False)
+    launches = {}
+    for path, time_shard in (("mesh", False), ("mesh time_shard", True)):
+        meshed = with_options(pipe).use_mesh([device], time_shard)
+        got, launches[path] = drive(
+            path, RENDER_KERNELS,
+            lambda: meshed.render_uint8(*clip, add_emo=False), MESH_SECONDS)
+        same_bits(got, want, f"{path} against render_uint8")
+    srcs, wavs, poses = batch_inputs()
+    srcs, wavs, poses = srcs[:2], wavs[:2], poses[:2]
+    want = pipe.render_batch_uint8(srcs, wavs, poses)
+    meshed = with_options(pipe).use_mesh([device])
+    got, launches["mesh batch"] = drive(
+        "mesh batch", RENDER_KERNELS,
+        lambda: meshed.render_batch_uint8(srcs, wavs, poses))
+    same_bits(got, want, "mesh batch against render_batch_uint8")
+    return launches
+
+
+def mesh_training(unsharded: dict, device: str = "cuda") -> dict:
+    """``eamm-torch-run --mode train_part1`` under torchrun's variables
+    (one process, NCCL) at FULL_CONFIG and the YAML's batch:
+    MESH_TRAIN_STEPS steps with the launch counts zeroed just before and
+    read just after (K3 and K3b must launch), each step's wall seconds,
+    the peak memory and every loss finite, beside phase 8's unsharded
+    part1 run (``unsharded``)."""
+    from eamm_tpu_torch.cli.run import main as run_main
+    from eamm_tpu_torch.train.logging import read_scalars
+    with tempfile.TemporaryDirectory() as work:
+        root = os.path.join(work, "lrw")
+        write_lrw_tree(root)
+        cfg = train_config("train_part1", root, FULL_CONFIG, num_repeats=8,
+                           log_every=1)
+        path = os.path.join(work, "mesh.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        log = os.path.join(work, "log_mesh")
+        with timed_steps("make_part1_step") as (walls, _), \
+                torchrun_variables(free_port()):
+            torch.cuda.reset_peak_memory_stats()
+            state, counts = drive(
+                "distributed train_part1", MODE_KERNELS["train_part1"],
+                lambda: run_main(["--config", path, "--mode", "train_part1",
+                                  "--log_dir", log, "--max_steps",
+                                  str(MESH_TRAIN_STEPS),
+                                  *(["--cpu"] if device == "cpu" else [])]),
+                info={"steps": MESH_TRAIN_STEPS, "world_size": 1})
+            peak = torch.cuda.max_memory_allocated()
+        (run,) = os.listdir(log)
+        losses = {tag: [float(v) for v in vals] for tag, (_, vals) in
+                  read_scalars(os.path.join(log, run, "scalars.jsonl"))
+                  .items()}
+    if state.step != MESH_TRAIN_STEPS or not all(
+            np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"distributed train_part1: steps {state.step}, "
+                             f"losses {losses}")
+    result = {"world_size": 1,
+              "backend": "gloo" if device == "cpu" else "nccl",
+              "batch": cfg["train_params"]["batch_size"], "frames": 16,
+              "steps": MESH_TRAIN_STEPS, "step_seconds": walls,
+              "peak_memory_allocated": peak, "losses": losses,
+              "launches_per_step": {k: v / MESH_TRAIN_STEPS
+                                    for k, v in counts.items()},
+              "unsharded_step_seconds_median":
+                  unsharded["step_seconds_median"],
+              "unsharded_peak_memory_allocated":
+                  unsharded["peak_memory_allocated"],
+              "card": card_line()}
+    emit("mesh_train_entry_point", **result)
+    return result
+
+
+def mesh_phase(pipe: EammPipeline, unsharded: dict,
+               device: str = "cuda") -> dict:
+    """Phase 11: K6 against its plain version, then the mesh at world size
+    1 on the card: the TINY distributed step against the CPU, the meshed
+    renders, the distributed loop at FULL_CONFIG.  -> {'k6_worst',
+    'launches': path -> counts, 'train'}."""
+    t_phase = time.perf_counter()
+    worst = k6_parity() if device == "cuda" else 0.0
+    step = mesh_step(device)
+    launches = mesh_renders(pipe, f"{device}:0" if device == "cuda"
+                            else device)
+    train = mesh_training(unsharded, device)
+    launches["distributed train_part1 per step"] = train["launches_per_step"]
+    emit("mesh_phase", seconds=time.perf_counter() - t_phase,
+         train_step_over=step["grad_worst_over"], card=card_line())
+    return {"k6_worst": worst, "launches": launches, "train": train}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -3372,7 +3630,41 @@ def timings(captured: dict) -> dict:
                               8 * res.numel()),    # 4 FMA per value
             "timing": rows,
         }
+    out["warp_wide_b16"] = k6_timings(gen)
     return {**out, **kp_timings(gen)}
+
+
+def k6_timings(gen: torch.Generator) -> dict:
+    """K6 at its own shape (bfloat16 [1,64,64,256] by a bfloat16
+    [128,64,64,2] grid in U(-1.05, 1.05)), in the same turns as K1 on the
+    same inputs, F.grid_sample on the expanded NCHW view (which rounds
+    once, with no bfloat16 rows: not the same function) and the
+    store-only kernel; device ms by CUDA graph replay and the eager calls.
+    Bound: each input read once and the output written once, against 9
+    operations an output value (two rows of two products and a sum, the x
+    pass's two products and a sum)."""
+    wrapper, plain = KERNELS["warp_wide_b16"][:2]
+    image, grid = k6_case(1, K6_B, (64, 64), torch.bfloat16, gen)
+    res = wrapper(image, grid)
+    sink = torch.empty_like(res)
+    nchw = image.permute(0, 3, 1, 2).expand(K6_B, -1, -1, -1)
+    fns = {"ms": lambda: wrapper(image, grid),
+           "warp_wide_ms": lambda: warp_cuda.grid_sample_wide(image, grid),
+           "library_ms": lambda: F.grid_sample(
+               nchw, grid, mode="bilinear", padding_mode="zeros",
+               align_corners=False),
+           "store_ms": lambda: warp_cuda.store_only(sink)}
+    device = in_turns({k: graphed(f) for k, f in fns.items()})
+    eager = in_turns({"call_ms": (fns["ms"], 1),
+                      "library_call_ms": (fns["library_ms"], 1),
+                      "store_call_ms": (fns["store_ms"], 1)})
+    bound = bound_ms(nbytes(image, grid, res), 9 * res.numel())
+    return {"ms": device["ms"]["median"],
+            "plain_ms": time_ms(lambda: plain(image, grid)),
+            "library_ms": device["library_ms"]["median"], "bound": bound,
+            "timing": {**device, **eager, "shapes": [list(image.shape),
+                                                     list(grid.shape)],
+                       "share": bound[0] / device["ms"]["median"]}}
 
 
 def backward_timings() -> dict:
@@ -3552,19 +3844,21 @@ def main() -> int:
     training = training_phase()
     part2 = part2_phase()
     gan = gan_phase(pipe)
+    mesh = mesh_phase(pipe, training["runs"]["train_part1"])
     times = {**timings(captured), **backward_timings()}
 
     # whose launches each row counts
     source_of = {name: ("emotional linear_3 frames 10 s", counts["frames"])
                  for name in RENDER_KERNELS}
     source_of["kp_expectation"] = ("emotional map frames 4 s", counts["map"])
-    for name in ("warp_shared", "kp_expectation_fused"):
+    for name in ("warp_shared", "kp_expectation_fused", "warp_wide_b16"):
         source_of[name] = ("entry points", entry)
     fine_tune = training["runs"]["train_part1_fine_tune"]
     for name in BACKWARD_KERNELS:
         source_of[name] = (f"train_part1_fine_tune {TRAIN_STEPS} steps",
                            fine_tune["launches"])
     worst.update(training["worst"])
+    worst["warp_wide_b16"] = mesh["k6_worst"]
     by_path = {name: {(f"{r['path']} {r['clip_seconds']:g} s"
                        if "clip_seconds" in r else r["path"]):
                       r["launches"][name] for r in REQUESTS}
@@ -3592,6 +3886,9 @@ def main() -> int:
                      "launches_by_gan_path": {
                          path: counts.get(name, 0)
                          for path, counts in gan["launches"].items()},
+                     "launches_by_mesh_path": {
+                         path: counts.get(name, 0)
+                         for path, counts in mesh["launches"].items()},
                      "launches_by_eval_mode": {
                          **{mode: counts[name] for mode, counts
                             in part2["eval"]["launches"].items()},

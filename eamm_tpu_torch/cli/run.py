@@ -17,6 +17,16 @@ reconstruction`` prints the test split's reconstruction metrics as JSON
 pair's frames as ``pair_<i>.npy`` (uint8) under ``<run>/animation/``;
 both need ``--fomm_checkpoint``.  A config may be YAML or, where PyYAML
 is missing, JSON.
+
+Under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+``MASTER_PORT`` set) a training mode runs data parallel, one process per
+device: ``torchrun --nproc_per_node 4 -m eamm_tpu_torch.cli.run ...``.
+Each process joins the group (NCCL on CUDA device ``LOCAL_RANK``, gloo with
+``--cpu``) before it builds its models and trains on its slice of the
+batch stream (``train_params.batch_size`` per process); rank 0 picks the
+run's directory and writes the logs and checkpoints.  Without those
+variables the run is one process, as before; ``--device_ids`` is accepted
+and ignored either way.  The evaluation modes run in one process.
 """
 from __future__ import annotations
 
@@ -25,8 +35,8 @@ import shutil
 import time
 from argparse import ArgumentParser
 
-MODES = ("train_part1", "train_part1_fine_tune", "train_part2",
-         "reconstruction", "animate")
+TRAIN_MODES = ("train_part1", "train_part1_fine_tune", "train_part2")
+MODES = TRAIN_MODES + ("reconstruction", "animate")
 
 
 def build_parser() -> ArgumentParser:
@@ -65,8 +75,9 @@ def build_parser() -> ArgumentParser:
                              "optimizer step")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device_ids", default="0", type=str,
-                        help="accepted for the reference CLI's flags; the "
-                             "port trains on one device")
+                        help="accepted for the reference CLI's flags and "
+                             "ignored: a run is data parallel under "
+                             "torchrun, one process per device")
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (the kernels' plain versions)")
@@ -164,10 +175,7 @@ def main(argv=None):
     opt = build_parser().parse_args(argv)
     import torch
 
-    from eamm_tpu_torch.compat import load_torch_checkpoint
-    from eamm_tpu_torch.compat.preflight import check_state_dict
     from eamm_tpu_torch.config import load_config
-    from eamm_tpu_torch.train.loop import train
 
     config = load_config(opt.config)
     tp = config.setdefault("train_params", {})
@@ -175,11 +183,41 @@ def main(argv=None):
         if getattr(opt, key):
             tp[key] = getattr(opt, key)
 
+    from eamm_tpu_torch.parallel import mesh
+    env = mesh.torchrun_env() if opt.mode in TRAIN_MODES else None
+    device = torch.device("cpu" if opt.cpu else "cuda")
+    if env is not None:
+        if not opt.cpu:
+            device = torch.device("cuda", env["local_rank"])
+        mesh.init_distributed(env["rank"], env["world_size"],
+                              env["init_method"], device)
+    try:
+        return _run(opt, config, device, env)
+    finally:
+        if env is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _run(opt, config: dict, device, env):
+    import torch.distributed as dist
+
+    from eamm_tpu_torch.compat import load_torch_checkpoint
+    from eamm_tpu_torch.compat.preflight import check_state_dict
+    from eamm_tpu_torch.train.loop import train
+
+    rank = 0 if env is None else env["rank"]
     log_dir, checkpoint = run_dir(opt)
-    os.makedirs(log_dir, exist_ok=True)
-    shutil.copy(opt.config, os.path.join(log_dir,
-                                         os.path.basename(opt.config)))
-    print(f"mode={opt.mode} log_dir={log_dir}", flush=True)
+    if env is not None:     # rank 0's choice (the timestamp) for every rank
+        chosen = [(log_dir, checkpoint)]
+        dist.broadcast_object_list(chosen, src=0)
+        log_dir, checkpoint = chosen[0]
+    if rank == 0:
+        os.makedirs(log_dir, exist_ok=True)
+        shutil.copy(opt.config, os.path.join(log_dir,
+                                             os.path.basename(opt.config)))
+        print(f"mode={opt.mode} log_dir={log_dir}"
+              + (f" ranks={env['world_size']}" if env else ""), flush=True)
 
     for path in (opt.fomm_checkpoint, opt.audio_checkpoint,
                  opt.emo_checkpoint):
@@ -189,7 +227,6 @@ def main(argv=None):
                 raise SystemExit(str(report))
             if not report.ok:
                 print(report)
-    device = torch.device("cpu" if opt.cpu else "cuda")
     if opt.mode in ("reconstruction", "animate"):
         return evaluate(opt, config, log_dir, device)
     dataset_name = config.get("dataset_params", {}).get("name", "LRW")

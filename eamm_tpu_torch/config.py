@@ -22,18 +22,12 @@ def load_config(path: str) -> dict:
         return yaml.safe_load(f)
 
 
-def _check_jacobian(params: dict) -> None:
-    if not params.get("estimate_jacobian", True):
-        raise NotImplementedError("the port's keypoint heads always estimate "
-                                  "Jacobians (estimate_jacobian=True)")
-
-
 def build_kp_detector(config: dict) -> KPDetector:
     mp = config["model_params"]
     kp, common = mp["kp_detector_params"], mp["common_params"]
-    _check_jacobian(common)
     return KPDetector(num_kp=common["num_kp"],
                       num_channels=common.get("num_channels", 3),
+                      estimate_jacobian=common.get("estimate_jacobian", True),
                       temperature=kp["temperature"],
                       block_expansion=kp["block_expansion"],
                       max_features=kp["max_features"],
@@ -44,15 +38,14 @@ def build_kp_detector(config: dict) -> KPDetector:
 def build_kp_detector_a(config: dict) -> KPDetectorA:
     mp = config["model_params"]
     audio = mp["audio_params"]
-    _check_jacobian(audio)
     return KPDetectorA(num_kp=audio["num_kp"],
-                       temperature=mp["kp_detector_params"]["temperature"])
+                       temperature=mp["kp_detector_params"]["temperature"],
+                       estimate_jacobian=audio.get("estimate_jacobian", True))
 
 
 def build_generator(config: dict) -> OcclusionAwareGenerator:
     mp = config["model_params"]
     g, common = mp["generator_params"], mp["common_params"]
-    _check_jacobian(common)
     return OcclusionAwareGenerator(
         num_channels=common.get("num_channels", 3),
         num_kp=common["num_kp"],

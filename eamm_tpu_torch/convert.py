@@ -110,8 +110,10 @@ class _StateDict:
 
 
 def _kp_heads(b: _StateDict) -> None:
+    """The heads; a head that estimates no Jacobian has no ``jacobian``."""
     b.conv("head/kp", "kp")
-    b.conv("head/jacobian", "jacobian")
+    if "jacobian" in b.params["head"]:
+        b.conv("head/jacobian", "jacobian")
 
 
 def kp_detector_state_dict(variables: dict) -> dict:
@@ -139,11 +141,25 @@ def generator_state_dict(variables: dict) -> dict:
         for part in ("norm1", "norm2"):
             b.norm(f"res{i}/{part}", f"bottleneck.r{i}.{part}")
     b.conv("final", "final")
-    dm = "dense_motion_network"
-    b.hourglass(f"{dm}/hourglass", f"{dm}.hourglass")
-    b.conv(f"{dm}/mask", f"{dm}.mask")
-    if "occlusion" in b.params[dm]:
-        b.conv(f"{dm}/occlusion", f"{dm}.occlusion")
+    _dense_motion(b, "dense_motion_network/", "dense_motion_network.")
+    return b.sd
+
+
+def _dense_motion(b: _StateDict, path: str, name: str) -> None:
+    """Dense motion's leaves under ``path`` (``''`` or ending in '/'),
+    named under ``name`` (``''`` or ending in '.')."""
+    params = b._at(b.params, path.rstrip("/")) if path else b.params
+    b.hourglass(f"{path}hourglass", f"{name}hourglass")
+    b.conv(f"{path}mask", f"{name}mask")
+    if "occlusion" in params:
+        b.conv(f"{path}occlusion", f"{name}occlusion")
+
+
+def dense_motion_state_dict(variables: dict) -> dict:
+    """A JAX ``DenseMotionNetwork``'s variables -> the port's
+    ``DenseMotionNetwork`` state_dict."""
+    b = _StateDict(variables)
+    _dense_motion(b, "", "")
     return b.sd
 
 

@@ -8,6 +8,9 @@
 //   warp_shared <- grid_sample_shared / _warp_kernel (one [Hs,Ws,C] source
 //                  by N grids, any C): warp_wide's kernel when C % 8 == 0,
 //                  else warp_groups_kernel
+// and the TPU kernel of benchmarks/bench_warp_variants.py:
+//   warp_wide_b16 <- twolevel_b16 / _twolevel_kernel_b16 (warp_wide's
+//                  warp with its y pass rounded to bfloat16, see below)
 // The TPU kernels factor the sample into tent-matrix or one-hot-matrix
 // products because the TPU has no per-lane gather.  The GPU gathers
 // natively, so the kernels here read the four corners directly.
@@ -54,6 +57,21 @@
 // bytes, plus the gathers.  Unrolling the pair loop, 16x16 tiles, 512
 // threads and plain stores each measured slower in trial builds.
 //
+// warp_wide_b16 (K6).  twolevel_b16 is warp_wide's function with one more
+// rounding: the y pass (each column's two row taps, summed in float32) is
+// rounded to bfloat16 whatever the image type, then the x pass weights
+// those rows in float32 and rounds once to the image type.  Its tents are
+// max(0, 1 - |f - i|) at each tap's own integer i, the y tents cast to the
+// image type before they multiply it.  The TPU kernel forms those sums as
+// dense tent-matrix products; only two rows and two columns have non-zero
+// tents, so here they are the same four-corner gather as warp_wide, in
+// the same block and thread mapping, each output element
+//   round_out(fl(tx0 * r0) + fl(tx1 * r1)),
+//   rK = bf16(fl(ty0' * s(y0, xK)) + fl(ty1' * s(y1, xK))),
+// with __fmul_rn / __fadd_rn so that nvcc contracts nothing into an FMA
+// and each product and sum rounds as in the TPU kernel.  Bound by its
+// output bytes, as warp_wide is.
+//
 // warp_groups (C not a multiple of 8, e.g. 35): pixel rows are not 16-byte
 // aligned, so a thread owns up to 8 channels of one pixel and reads and
 // writes them one by one; neighbouring threads cover neighbouring
@@ -92,6 +110,41 @@ __device__ __forceinline__ void corners(float gx, float gy, int H, int W,
     idx[c] = valid ? (int)cy[c] * W + (int)cx[c] : -1;
     wgt[c] = valid ? cw[c] : 0.f;
   }
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// One tent weight, max(0, 1 - |f - i|), rounded as twolevel_b16 rounds it.
+__device__ __forceinline__ float tent(float f, float i) {
+  return fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(f, i))));
+}
+
+// K6's taps: corner offsets y*W+x (or -1 outside the image) in corners()'s
+// order and weights {tx0, tx1, ty0', ty1'}, the y tents rounded to T.
+template <typename T>
+__device__ __forceinline__ void tents(float gx, float gy, int H, int W,
+                                      int idx[4], float wgt[4]) {
+  const float x = unnormalize(gx, W, 0);
+  const float y = unnormalize(gy, H, 0);
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float cx[2] = {x0, x0 + 1.f}, cy[2] = {y0, y0 + 1.f};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float xc = cx[c & 1], yc = cy[c >> 1];
+    const bool valid = xc >= 0.f && xc <= (float)(W - 1) &&
+                       yc >= 0.f && yc <= (float)(H - 1);
+    idx[c] = valid ? (int)yc * W + (int)xc : -1;
+  }
+  wgt[0] = tent(x, cx[0]);
+  wgt[1] = tent(x, cx[1]);
+  wgt[2] = to_float(from_float<T>(tent(y, cy[0])));
+  wgt[3] = to_float(from_float<T>(tent(y, cy[1])));
 }
 
 // One pixel's (x, y) in one 8-byte (float32) or 4-byte (bfloat16) load.
@@ -148,13 +201,6 @@ __device__ __forceinline__ void load_px(const float* p, float v[CP]) {
     unpack(reinterpret_cast<const uint4*>(p)[i], v + 4 * i, float());
 }
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 constexpr int kWideTile = 8;            // 8x8 output pixels per block
 constexpr int kWidePix = kWideTile * kWideTile;
@@ -167,7 +213,9 @@ constexpr int kMaxSmem = 232448;        // a block's opt-in maximum on sm_90
 
 // One block per 8x8 tile of one grid's output, all C channels; C % 8 == 0.
 // grid: x over tiles (row-major over ceil(Ho/8) x ceil(Wo/8)), y over B.
-template <typename T, typename G>
+// B16: K6's two passes (tents(), the rows rounded to bfloat16), else the
+// bilinear sample of corners().
+template <typename T, typename G, bool B16 = false>
 __global__ void __launch_bounds__(kWideThreads)
 warp_wide_kernel(const T* __restrict__ src, const G* __restrict__ grid,
                  T* __restrict__ out, int Ho, int Wo, int group, int H, int W,
@@ -190,7 +238,10 @@ warp_wide_kernel(const T* __restrict__ src, const G* __restrict__ grid,
     const float2 g = load_xy(grid + ((size_t)b * P + p) * 2);
     int idx[4];
     float wgt[4];
-    corners(g.x, g.y, H, W, align, idx, wgt);
+    if constexpr (B16)
+      tents<T>(g.x, g.y, H, W, idx, wgt);
+    else
+      corners(g.x, g.y, H, W, align, idx, wgt);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       s_src[t][c] = idx[c] < 0 ? -1 : idx[c] * C;
@@ -208,6 +259,38 @@ warp_wide_kernel(const T* __restrict__ src, const G* __restrict__ grid,
     const int q = k / vecs;
     const int c0 = (k - q * vecs) * VEC;
     float acc[VEC];
+    if constexpr (B16) {
+      // column xK's row value rK, then acc = fl(tx0 r0) + fl(tx1 r1); a
+      // corner outside the image adds nothing (a zero product)
+      float term[2][VEC];
+#pragma unroll
+      for (int col = 0; col < 2; ++col) {
+        float p[2][VEC];
+#pragma unroll
+        for (int row = 0; row < 2; ++row) {
+          const int off = s_src[q][2 * row + col];
+          float val[VEC];
+          if (off >= 0)
+            unpack(__ldg(reinterpret_cast<const uint4*>(s + off + c0)), val,
+                   T());
+          const float w = s_wgt[q][2 + row];
+#pragma unroll
+          for (int j = 0; j < VEC; ++j)
+            p[row][j] = off >= 0 ? __fmul_rn(w, val[j]) : 0.f;
+        }
+        const float wx = s_wgt[q][col];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float r = __bfloat162float(
+              __float2bfloat16_rn(__fadd_rn(p[0][j], p[1][j])));
+          term[col][j] = __fmul_rn(wx, r);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[j] = __fadd_rn(term[0][j], term[1][j]);
+      __stcs(reinterpret_cast<uint4*>(o + s_out[q] + c0), pack(acc, T()));
+      continue;
+    }
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
 #pragma unroll
@@ -370,11 +453,11 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, typename G>
+template <typename T, typename G, bool B16 = false>
 cudaError_t launch_wide(const Args& a) {
   const int tiles = ((a.Ho + kWideTile - 1) / kWideTile) *
                     ((a.Wo + kWideTile - 1) / kWideTile);
-  warp_wide_kernel<T, G><<<dim3(tiles, a.B), kWideThreads, 0, a.stream>>>(
+  warp_wide_kernel<T, G, B16><<<dim3(tiles, a.B), kWideThreads, 0, a.stream>>>(
       static_cast<const T*>(a.src), static_cast<const G*>(a.grid),
       static_cast<T*>(a.out), a.Ho, a.Wo, a.group, a.H, a.W, a.C, a.align);
   return cudaGetLastError();
@@ -458,6 +541,8 @@ int dispatch(int dtype, int gdtype, const Args& a) {
 template <typename T, typename G>
 struct Wide { static cudaError_t run(const Args& a) { return launch_wide<T, G>(a); } };
 template <typename T, typename G>
+struct WideB16 { static cudaError_t run(const Args& a) { return launch_wide<T, G, true>(a); } };
+template <typename T, typename G>
 struct Narrow { static cudaError_t run(const Args& a) { return launch_narrow<T, G>(a); } };
 template <typename T, typename G>
 struct Groups { static cudaError_t run(const Args& a) { return launch_groups<T, G>(a); } };
@@ -483,6 +568,19 @@ extern "C" int eamm_warp_wide(const void* src, const void* grid, void* out,
   return dispatch<Wide>(dtype, gdtype,
                         {src, grid, out, B, Ho, Wo, group, H, W, C, align,
                          static_cast<cudaStream_t>(stream)});
+}
+
+// K6: warp_wide's warp with the y pass rounded to bfloat16, align_corners
+// False (twolevel_b16 takes no other); C % 8 == 0.
+extern "C" int eamm_warp_wide_b16(const void* src, const void* grid,
+                                  void* out, int dtype, int gdtype, int B,
+                                  int Ho, int Wo, int group, int H, int W,
+                                  int C, void* stream) {
+  if (C % 8 != 0 || !fits(B, Ho, Wo, group, H, W, C))
+    return (int)cudaErrorInvalidValue;
+  return dispatch<WideB16>(dtype, gdtype,
+                           {src, grid, out, B, Ho, Wo, group, H, W, C, 0,
+                            static_cast<cudaStream_t>(stream)});
 }
 
 // 1 <= C <= 8; the padded source and an output tile must fit in one

@@ -5,10 +5,12 @@ array through ``eamm_tpu_torch/native/batch_loader.cc``: libpng on worker
 threads, outside the GIL.  At first use the source is compiled with
 ``g++`` into ``build/native/`` at the repository root (named by a hash of
 the source and the flags, as the CUDA kernels are) and loaded with ctypes.
-Without ``g++`` or libpng's headers the build fails once and every call
-decodes with imageio instead, bilinearly resized the same way when a
-file's size differs; ``native_available()`` says which decoder runs.
-This is host code: neither decoder touches the device.
+Without ``g++`` or libpng's headers the build fails once, and every call
+decodes with imageio where it imports, else with ``decode_zlib``: the
+standard library's ``zlib`` and numpy, for the 8-bit grey, grey+alpha,
+RGB and RGBA files that are not interlaced, bitwise the native library's
+output (its pixel scale and its bilinear resize).  ``route()`` says which
+of the three decodes.  This is host code: no decoder touches the device.
 
 The AVI writers (pure Python) are the demo's video output, with the
 driving audio muxed in as a 16-bit PCM stream, playable without a codec
@@ -24,6 +26,7 @@ import os
 import struct
 import subprocess
 import threading
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -79,11 +82,25 @@ def native_available() -> bool:
     return _load() is not None
 
 
+def route() -> str:
+    """The decoder ``decode_batch`` uses: 'native', else 'imageio' where it
+    imports, else 'zlib'."""
+    if _load() is not None:
+        return "native"
+    try:
+        import imageio.v2  # noqa: F401
+    except ImportError:
+        return "zlib"
+    return "imageio"
+
+
 def build_error() -> str | None:
     """Why the native library could not be built or loaded (the
-    compiler's last output), or None when it is in use."""
-    _load()
-    return _lib_error
+    compiler's last output) and which route decodes instead, or None when
+    it is in use."""
+    if _load() is None:
+        return f"{_lib_error}\n(PNGs decode through the {route()} route)"
+    return None
 
 
 def _decode_imageio(paths: list[str], h: int, w: int) -> np.ndarray:
@@ -105,13 +122,147 @@ def _decode_imageio(paths: list[str], h: int, w: int) -> np.ndarray:
     return out
 
 
+# PNG colour type -> channels, for the 8-bit types decode_zlib reads
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}     # grey, RGB, grey+alpha, RGBA
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the row filters of ``h`` rows of ``stride`` bytes, ``bpp``
+    bytes a pixel -> [h, stride] uint8.  None, Sub and Up are vectorized
+    along the row; Average and Paeth read the decoded pixel to their left,
+    so they walk the row in order (in Python ints, which here are several
+    times faster than numpy calls on a pixel's few channels)."""
+    rows = np.frombuffer(data, np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int16)
+    for y in range(h):
+        kind, line = rows[y, 0], rows[y, 1:].astype(np.int16)
+        if kind == 0:
+            cur = line
+        elif kind == 1:
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 255
+        elif kind == 2:
+            cur = (line + prev) & 255
+        elif kind in (3, 4):
+            # bytes as Python ints: a pixel's channels are bpp consecutive
+            # bytes, each reading the same channel of its left neighbour
+            raw, up, cur = line.tolist(), prev.tolist(), [0] * stride
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = up[i - bpp] if i >= bpp else 0
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else (
+                        b if pb <= pc else c)
+                cur[i] = (raw[i] + pred) & 255
+        else:
+            raise IOError(f"row {y} has unknown filter type {kind}")
+        out[y] = cur
+        prev = out[y].astype(np.int16)
+    return out
+
+
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit grey, grey+alpha, RGB or RGBA PNG, not interlaced ->
+    [H, W, C] uint8 with the file's C channels, by ``zlib`` and numpy;
+    raises ``IOError`` naming the file and the property it cannot read
+    (16-bit, palette, interlace, a bad signature or stream)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIGNATURE:
+        raise IOError(f"{path!r}: not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body[:13])
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + n
+    if header is None:
+        raise IOError(f"{path!r}: no IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if color not in _PNG_CHANNELS:
+        raise IOError(f"{path!r}: colour type {color} "
+                      f"({'palette' if color == 3 else 'unknown'}) is not "
+                      "read by the zlib route")
+    if depth != 8:
+        raise IOError(f"{path!r}: bit depth {depth} is not read by the zlib "
+                      "route (8-bit only)")
+    if interlace:
+        raise IOError(f"{path!r}: interlaced (Adam7) is not read by the "
+                      "zlib route")
+    bpp = _PNG_CHANNELS[color]
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise IOError(f"{path!r}: bad image data stream ({e})") from e
+    if len(raw) != h * (w * bpp + 1):
+        raise IOError(f"{path!r}: {len(raw)} bytes of image data for a "
+                      f"{w}x{h} image of {bpp} bytes a pixel")
+    try:
+        return _unfilter(raw, h, w * bpp, bpp).reshape(h, w, bpp)
+    except IOError as e:
+        raise IOError(f"{path!r}: {e}") from e
+
+
+def _resize_native(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """``native/batch_loader.cc``'s ``resize_rgb`` in float32, operation
+    for operation: [sh, sw, 3] -> [h, w, 3]."""
+    sh, sw = img.shape[:2]
+    if (sh, sw) == (h, w):
+        return img
+    f32 = np.float32
+    half = f32(0.5)
+
+    def taps(n_out, n_in):
+        f = (np.arange(n_out, dtype=f32) + half) * f32(n_in) / f32(n_out) \
+            - half
+        i0 = np.where(f < 0, 0, f.astype(np.int64))
+        i1 = np.minimum(i0 + 1, n_in - 1)
+        wt = np.maximum(f - i0.astype(f32), f32(0))
+        return i0, i1, wt
+
+    y0, y1, wy = taps(h, sh)
+    x0, x1, wx = taps(w, sw)
+    wx, wy = wx[None, :, None], wy[:, None, None]
+    one = f32(1)
+    a = img[y0][:, x0] * (one - wx) + img[y0][:, x1] * wx
+    b = img[y1][:, x0] * (one - wx) + img[y1][:, x1] * wx
+    return a * (one - wy) + b * wy
+
+
+def decode_zlib(paths: list[str], h: int, w: int) -> np.ndarray:
+    """``decode_batch`` by ``read_png``: grey repeated to RGB, alpha
+    dropped, scaled by float32 1/255 and resized as the native library
+    does, so that its output is bitwise the library's."""
+    out = np.empty((len(paths), h, w, 3), np.float32)
+    scale = np.float32(1.0) / np.float32(255.0)
+    for i, p in enumerate(paths):
+        img = read_png(p)
+        img = img[..., :3] if img.shape[2] >= 3 else \
+            np.repeat(img[..., :1], 3, axis=2)
+        out[i] = _resize_native(img.astype(np.float32) * scale, h, w)
+    return out
+
+
 def decode_batch(paths: list[str], h: int, w: int,
                  n_threads: int = 4) -> np.ndarray:
     """PNGs -> [N, h, w, 3] float32 in [0, 1], each bilinearly resized to
     (h, w) when its size differs; raises IOError naming the first file
-    that fails."""
+    that fails.  The native library decodes where it built, else imageio
+    where it imports, else ``decode_zlib`` (``route``)."""
     lib = _load()
     if lib is None:
+        if route() == "zlib":
+            return decode_zlib(paths, h, w)
         return _decode_imageio(paths, h, w)
     out = np.empty((len(paths), h, w, 3), np.float32)
     names = (ctypes.c_char_p * len(paths))(*[os.fsencode(p) for p in paths])

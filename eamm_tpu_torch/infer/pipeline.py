@@ -43,6 +43,9 @@ identity-major, N sources read in place by the warps.  With
 whole clip in one segment, the movement scaled by a convex-hull ratio the
 host reads between the keypoint stage's halves, uint8 RGB out.
 ``from_torch_checkpoints`` loads the reference's three ``.pth.tar`` files.
+``use_mesh`` spreads the batched routes over several devices (identities
+in shards, one replica of the models per device) and, with
+``time_shard``, each single-clip decode chunk's frames.
 """
 from __future__ import annotations
 
@@ -71,6 +74,9 @@ from eamm_tpu_torch.ops.mfcc import (PAD_SAMPLES, audio_to_mfcc_windows,
                                      num_windows_for_samples,
                                      padded_buffer_len)
 from eamm_tpu_torch.ops.motion import convex_hull_area, normalize_kp
+from eamm_tpu_torch.parallel.mesh import (Mesh, canonical_device,
+                                          device_context, replicate_tree,
+                                          split_sizes)
 from eamm_tpu_torch.utils.transfer import Link
 
 # demo --type -> emotion head
@@ -282,6 +288,9 @@ class EammPipeline:
                              f"{self.options.transfer_format!r}")
         self.device = torch.device(self.options.device)
         self.link = Link(self.device)        # copies to and from the host
+        self.mesh: Mesh | None = None        # set by use_mesh
+        self.time_shard = False
+        self._replicas: list = []            # one pipeline per mesh device
         self.last_movement_scale: float | None = None   # adapt_scale's
         self.ignored_keys: dict = {}     # from_torch_checkpoints' skipped
         if models is None:
@@ -437,13 +446,16 @@ class EammPipeline:
     @torch.no_grad()
     def decode_frames(self, src: torch.Tensor, feats: torch.Tensor,
                       kp_driving: dict, kp_source: dict, start: int,
-                      stop: int, chunk: int, rgb: bool = False) -> tuple:
+                      stop: int, chunk: int, rgb: bool = False,
+                      shard_time: bool = False) -> tuple:
         """Frames [start, stop) of N identities (sources and features from
         ``source_features``, driving kp [N, Tp, ...], source kp [N, ...]),
         in chunks of ``chunk`` frames an identity, identity-major: N x chunk
         frames a decode, frame b reading source b // chunk in place -> the
         payload (``_to_payload``, uint8 RGB with ``rgb``), each tensor
-        [N, stop - start, ...], on the device."""
+        [N, stop - start, ...], on the device.  With ``shard_time`` (one
+        identity) on a ``use_mesh(time_shard=True)`` pipeline each chunk's
+        frames are split over the mesh (``_decode_sharded``)."""
         dt = self.options.compute_dtype
         N = src.shape[0]
         kp_src = {k: v.to(dt) for k, v in kp_source.items()}
@@ -454,10 +466,35 @@ class EammPipeline:
             n = kp_d["value"].shape[1]
             kp_d = {k: v.flatten(0, 1) for k, v in kp_d.items()}
             kps = {k: v.repeat_interleave(n, dim=0) for k, v in kp_src.items()}
-            out = self._to_payload(self.generator.decode(src, feats, kp_d, kps),
-                                   rgb)
+            if shard_time and self.time_shard and N == 1:
+                out = self._decode_sharded(src, feats, kp_d, kps, rgb)
+            else:
+                out = self._to_payload(
+                    self.generator.decode(src, feats, kp_d, kps), rgb)
             parts.append(tuple(x.view(N, n, *x.shape[1:]) for x in out))
         return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+
+    def _decode_sharded(self, src: torch.Tensor, feats: torch.Tensor,
+                        kp_d: dict, kps: dict, rgb: bool) -> tuple:
+        """One identity's decode chunk with its frames in contiguous parts,
+        one per mesh device, each decoded and made a payload by that
+        device's replica (the source and its features copied there), the
+        parts joined on this pipeline's device in frame order."""
+        n = kp_d["value"].shape[0]
+        parts, start = [], 0
+        for rep, k in zip(self._replicas, split_sizes(n, len(self._replicas))):
+            if k == 0:
+                continue
+            d = rep.device
+            with device_context(d):
+                out = rep._to_payload(rep.generator.decode(
+                    src.to(d), feats.to(d),
+                    {key: v[start:start + k].to(d) for key, v in kp_d.items()},
+                    {key: v[start:start + k].to(d) for key, v in kps.items()}),
+                    rgb)
+            parts.append(tuple(x.to(self.device) for x in out))
+            start += k
+        return tuple(torch.cat(p) for p in zip(*parts))
 
     def _decode_one(self, src: torch.Tensor, feats: torch.Tensor,
                     kp_norm: dict, kp_s: dict, start: int,
@@ -468,7 +505,7 @@ class EammPipeline:
         payload = self.decode_frames(
             src, feats, {k: v[None] for k, v in kp_norm.items()},
             {k: v[None] for k, v in kp_s.items()}, start, stop,
-            self.options.frame_chunk)
+            self.options.frame_chunk, shard_time=True)
         return tuple(x[0] for x in payload)
 
     def decode_clip(self, source: torch.Tensor, kp_norm: dict, kp_s: dict):
@@ -603,17 +640,22 @@ class EammPipeline:
         drv = convex_hull_area(kp_initial["value"].float().cpu().numpy())
         return float(np.sqrt(src) / np.sqrt(drv))
 
-    def _segments(self, T: int, Tseg: int, decode, axis: int = 0):
-        """Yields (start frame, payload on the host) per segment of Tseg
-        frames, in clip order, ``decode(start, stop)`` giving a segment's
-        payload on the device.  Every segment's decode and copy are queued
-        before the host waits for the first copy; each copy is cut to the
-        T real frames along ``axis``, and segments holding only padding are
-        not decoded."""
-        fetches = [(start, self.link.fetch_async(
+    def _queue_segments(self, T: int, Tseg: int, decode,
+                        axis: int = 0) -> list:
+        """[(start frame, its copy to the host in flight)] per segment of
+        Tseg frames, in clip order, ``decode(start, stop)`` giving a
+        segment's payload on the device: every segment's decode and copy
+        queued, nothing waited for.  Each copy is cut to the T real frames
+        along ``axis``; segments holding only padding are not decoded."""
+        return [(start, self.link.fetch_async(
             decode(start, start + Tseg), min(Tseg, T - start), axis))
             for start in range(0, T, Tseg)]
-        for start, fetch in fetches:
+
+    def _segments(self, T: int, Tseg: int, decode, axis: int = 0):
+        """Yields (start frame, payload on the host) per segment of
+        ``_queue_segments``, the host waiting for the first copy only once
+        every segment is queued."""
+        for start, fetch in self._queue_segments(T, Tseg, decode, axis):
             yield start, fetch.result()
 
     @torch.no_grad()
@@ -648,7 +690,7 @@ class EammPipeline:
         frames = self.decode_frames(
             src, feats, {k: v[None] for k, v in kp_norm.items()},
             {k: v[None] for k, v in kp_s.items()}, 0, pose.shape[0],
-            self.options.frame_chunk, rgb=True)[0][0]
+            self.options.frame_chunk, rgb=True, shard_time=True)[0][0]
         return self.link.fetch_async((frames,), T).result()[0]
 
     # ------------------------------------------------- unbounded route
@@ -766,7 +808,50 @@ class EammPipeline:
         for start, fetch in pending:
             yield start, fetch.result()
 
+    # ------------------------------------------------- the mesh
+
+    def use_mesh(self, mesh, time_shard: bool = False) -> "EammPipeline":
+        """Spread the renders over ``mesh`` (a ``parallel.Mesh`` or a list
+        of devices) and return self, as JAX's ``use_mesh`` does.  The
+        batched routes split the identities into contiguous shards, one per
+        device, each rendered by that device's replica of the models (this
+        pipeline itself on its own device, a copy of its models elsewhere),
+        the payloads joined in identity order.  With ``time_shard`` the
+        single-clip routes (whole clip, segments, unbounded chunks, staged)
+        also split each decode chunk's frames over the devices;
+        ``frame_chunk`` must be a multiple of the mesh's size.  The port's
+        kernels run on each device and stay on (JAX turns its Pallas warp
+        off here, since ``shard_map`` does not wrap it).  The keypoint
+        stage runs on this pipeline's device."""
+        mesh = mesh if isinstance(mesh, Mesh) else Mesh(tuple(mesh))
+        if time_shard and self.options.frame_chunk % mesh.size:
+            raise ValueError(f"time_shard: frame_chunk "
+                             f"{self.options.frame_chunk} is not a multiple "
+                             f"of the mesh's {mesh.size} devices")
+        replicas = {canonical_device(self.device): self}
+        for d in mesh.devices:
+            if d not in replicas:
+                replicas[d] = EammPipeline(
+                    self.config, options=dataclasses.replace(
+                        self.options, device=str(d)),
+                    models=replicate_tree(self.models, Mesh((d,)))[0])
+        self.mesh, self.time_shard = mesh, time_shard
+        self._replicas = [replicas[d] for d in mesh.devices]
+        return self
+
     # ------------------------------------------------- entry points
+
+    def audio_to_windows(self, waveform: np.ndarray) -> np.ndarray:
+        """[S] float32 waveform at 16 kHz -> MFCC windows [T, 28, 12]
+        float32 on the host (JAX's ``audio_to_windows``)."""
+        wav = torch.as_tensor(np.asarray(waveform, np.float32).reshape(-1),
+                              device=self.device)
+        return audio_to_mfcc_windows(wav).cpu().numpy()
+
+    def prepare_pose(self, all_pose: np.ndarray, T: int) -> np.ndarray:
+        """Host-side pose tiling and smoothing, [M, 7] -> [T, 6]
+        (``prepare_pose_np`` with ``options.smooth_pose``)."""
+        return prepare_pose_np(all_pose, T, smooth=self.options.smooth_pose)
 
     def _payloads(self, source_image, waveform, all_pose, transformed_video,
                   add_emo):
@@ -849,19 +934,23 @@ class EammPipeline:
         return max(8, min(self.options.frame_chunk,
                           128 // max(1, n_identities)))
 
-    def _prepare_batch(self, source_images, waveforms, poses):
+    def _prepare_batch(self, source_images, waveforms, poses,
+                       T: int = 0, chunk: int | None = None):
         """Host-side padding for N clips: each clip's MFCC windows computed
         from its own waveform, then windows and poses zero-padded to the
-        longest clip, bucketed so the padded length splits into
-        ``overlap_segments`` segments of whole batch chunks."""
+        longest clip (at least ``T`` frames: a mesh shard pads to the whole
+        batch's), bucketed so the padded length splits into
+        ``overlap_segments`` segments of whole batch chunks (of ``chunk``
+        frames, by default ``_batch_chunk(N)``)."""
         o, dev = self.options, self.device
         N = len(waveforms)
         windows = [audio_to_mfcc_windows(torch.as_tensor(
             np.asarray(w, np.float32).reshape(-1), device=dev))
             for w in waveforms]
-        T = max(w.shape[0] for w in windows)
+        T = max(T, *(w.shape[0] for w in windows))
         S = max(1, o.overlap_segments)
-        Tp = _bucket(T, _bucket(o.time_bucket, self._batch_chunk(N) * S))
+        chunk = chunk or self._batch_chunk(N)
+        Tp = _bucket(T, _bucket(o.time_bucket, chunk * S))
         win = windows[0].new_zeros((N, Tp, *windows[0].shape[1:]))
         pose = np.zeros((N, Tp, 6), np.float32)
         for i, w in enumerate(windows):
@@ -891,18 +980,46 @@ class EammPipeline:
         return driving, kp_source
 
     @torch.no_grad()
-    def _batch_segments(self, source_images, waveforms, poses):
-        """The batched whole-clip route: yields (start frame, payload on the
-        host, each [N, k, ...]) per segment (``_segments``), decoded in
-        chunks of ``_batch_chunk(N)`` frames an identity."""
+    def _queue_batch(self, source_images, waveforms, poses, T: int = 0,
+                     chunk: int | None = None) -> list:
+        """The batched whole-clip route queued (``_queue_segments``, each
+        payload [N, k, ...]), decoded in chunks of ``_batch_chunk(N)``
+        frames an identity; ``T`` and ``chunk`` as ``_prepare_batch``."""
         S = max(1, self.options.overlap_segments)
-        T, sources, windows, pose = self._prepare_batch(source_images,
-                                                        waveforms, poses)
+        T, sources, windows, pose = self._prepare_batch(
+            source_images, waveforms, poses, T, chunk)
         nhwc = sources.permute(0, 2, 3, 1)
         kv, kj, ksv, ksj, feats = self._batch_kp_impl(nhwc, windows, pose)
-        yield from self._segments(T, windows.shape[1] // S, lambda a, b: (
+        return self._queue_segments(T, windows.shape[1] // S, lambda a, b: (
             self._batch_segment_impl(nhwc, feats, ksv, ksj, kv[:, a:b],
                                      kj[:, a:b])), axis=1)
+
+    def _batch_segments(self, source_images, waveforms, poses):
+        """The batched whole-clip route: yields (start frame, payload on the
+        host, each [N, k, ...]) per segment.  On a mesh the N identities
+        split into contiguous shards, one per device, each queued on that
+        device's replica padded to the whole batch's length and segments,
+        before the host waits for any copy; each segment's payloads are
+        joined in identity order."""
+        if self.mesh is None:
+            for start, fetch in self._queue_batch(source_images, waveforms,
+                                                  poses):
+                yield start, fetch.result()
+            return
+        N = len(waveforms)
+        T = max(num_windows_for_samples(np.asarray(w).reshape(-1).shape[0])
+                for w in waveforms)
+        chunk, queued, a = self._batch_chunk(N), [], 0
+        for rep, n in zip(self._replicas, split_sizes(N, self.mesh.size)):
+            if n:
+                with device_context(rep.device):
+                    queued.append(rep._queue_batch(
+                        source_images[a:a + n], waveforms[a:a + n],
+                        poses[a:a + n], T, chunk))
+            a += n
+        for segment in zip(*queued):
+            yield segment[0][0], tuple(np.concatenate(x, axis=0) for x in zip(
+                *(fetch.result() for _, fetch in segment)))
 
     def render_batch_uint8(self, source_images, waveforms,
                            poses) -> np.ndarray:

@@ -67,8 +67,9 @@ class DenseMotionNetwork(FoldedWeights, nn.Module):
         heatmap = torch.cat([heatmap.new_zeros(B, 1, h, w), heatmap], dim=1)
 
         motions = sparse_motions((h, w), kp_driving["value"],
-                                 kp_source["value"], kp_driving["jacobian"],
-                                 kp_source["jacobian"])        # [B,K+1,h,w,2]
+                                 kp_source["value"],
+                                 kp_driving.get("jacobian"),
+                                 kp_source.get("jacobian"))    # [B,K+1,h,w,2]
         deformed = grid_sample_narrow(
             src, motions.reshape(B * (K + 1), h, w, 2)
         ).view(B, K + 1, h, w, C)

@@ -15,7 +15,12 @@ float32, and the fold multiplies 3.6x the operations).
 
 Returns {'value': [B, K, 2], 'jacobian': [B, K, 2, 2]}; in training also
 'heatmap' [B, K, h, w], the softmax of the logits that the part1 mimic
-loss reads (``heatmap_softmax``, plain torch, as in JAX).  The expectation
+loss reads (``heatmap_softmax``, plain torch, as in JAX).  As in JAX, a
+head built with ``estimate_jacobian=False`` has no ``jacobian`` conv and
+returns the heatmap's expected position (``gaussian2kp``) and no
+Jacobian, and one with ``single_jacobian_map=True`` has one 4-channel
+Jacobian map that every keypoint weights by its heatmap; those two forms
+are plain PyTorch (the expectation kernel takes one map per keypoint).  The expectation
 kernel takes float32: bfloat16 logits and Jacobian maps are cast to
 float32 around it (its backward too), as the TPU kernel computes in
 float32.
@@ -28,7 +33,7 @@ import torch.nn.functional as F
 
 from eamm_tpu_torch.models.blocks import Hourglass
 from eamm_tpu_torch.ops.antialias import antialias_downsample
-from eamm_tpu_torch.ops.grid import heatmap_softmax
+from eamm_tpu_torch.ops.grid import gaussian2kp, heatmap_softmax
 from eamm_tpu_torch.ops.kp_expectation import kp_expectation
 from eamm_tpu_torch.ops.subpixel import conv_s2d_folded, fold_conv_kernel_s2d
 
@@ -82,6 +87,28 @@ def keypoint_heads(feature_map: torch.Tensor, kp: nn.Conv2d,
     return out
 
 
+def plain_heads(feature_map: torch.Tensor, kp: nn.Conv2d,
+                jacobian: nn.Conv2d | None, temperature: float,
+                with_heatmap: bool = False) -> dict:
+    """The heads without the expectation kernel (JAX's ``_KPHead`` when it
+    estimates no Jacobian or one map for all keypoints): value by
+    ``gaussian2kp`` of the heatmap; the Jacobian, where ``jacobian`` is
+    given, the heatmap-weighted sum of its M = 1 map per keypoint."""
+    K = kp.out_channels
+    y = (F.conv2d(feature_map, kp.weight, kp.bias) if jacobian is None
+         else heads_conv(feature_map, kp, jacobian))
+    heatmap = heatmap_softmax(y[:, :K], temperature)
+    out = {"value": gaussian2kp(heatmap)}
+    if jacobian is not None:
+        B, _, h, w = y.shape
+        jmap = y[:, K:].reshape(B, -1, 4, h, w)             # [B, M, 4, h, w]
+        jac = (heatmap[:, :, None] * jmap).sum(dim=(-2, -1))  # [B, K, 4]
+        out["jacobian"] = jac.reshape(B, K, 2, 2)
+    if with_heatmap:
+        out["heatmap"] = heatmap
+    return out
+
+
 def reset_jacobian(jacobian: nn.Conv2d, num_kp: int) -> None:
     """The reference initialization of a Jacobian head: zero weights,
     identity bias."""
@@ -92,19 +119,29 @@ def reset_jacobian(jacobian: nn.Conv2d, num_kp: int) -> None:
 
 class KPHead(nn.Module):
     """The two heads and the expectation (names ``kp`` and ``jacobian``
-    are the reference's, set on the owning detector)."""
+    are the reference's, set on the owning detector); no ``jacobian`` conv
+    without ``estimate_jacobian``, a 4-channel one with
+    ``single_jacobian_map``."""
 
-    def __init__(self, in_features: int, num_kp: int, temperature: float):
+    def __init__(self, in_features: int, num_kp: int, temperature: float,
+                 estimate_jacobian: bool = True,
+                 single_jacobian_map: bool = False):
         super().__init__()
         self.kp = nn.Conv2d(in_features, num_kp, 7)
-        self.jacobian = nn.Conv2d(in_features, 4 * num_kp, 7)
+        self.num_maps = 1 if single_jacobian_map else num_kp
+        self.jacobian = (nn.Conv2d(in_features, 4 * self.num_maps, 7)
+                         if estimate_jacobian else None)
         self.num_kp = num_kp
         self.temperature = temperature
 
     def reset_jacobian(self) -> None:
-        reset_jacobian(self.jacobian, self.num_kp)
+        if self.jacobian is not None:
+            reset_jacobian(self.jacobian, self.num_maps)
 
     def forward(self, feature_map: torch.Tensor) -> dict:
+        if self.jacobian is None or self.num_maps != self.num_kp:
+            return plain_heads(feature_map, self.kp, self.jacobian,
+                               self.temperature, with_heatmap=self.training)
         return keypoint_heads(feature_map, self.kp, self.jacobian,
                               self.temperature, with_heatmap=self.training)
 
@@ -116,10 +153,12 @@ class KPDetector(KPHead):
     def __init__(self, num_kp: int = 10, block_expansion: int = 32,
                  max_features: int = 1024, num_blocks: int = 5,
                  temperature: float = 0.1, scale_factor: float = 0.25,
-                 num_channels: int = 3):
+                 num_channels: int = 3, estimate_jacobian: bool = True,
+                 single_jacobian_map: bool = False):
         predictor = Hourglass(block_expansion, num_channels, num_blocks,
                               max_features)
-        super().__init__(predictor.out_features, num_kp, temperature)
+        super().__init__(predictor.out_features, num_kp, temperature,
+                         estimate_jacobian, single_jacobian_map)
         self.predictor = predictor
         self.scale_factor = scale_factor
 
@@ -132,5 +171,7 @@ class KPDetectorA(KPHead):
     """Audio keypoint detector: the heads alone over the 35-channel map."""
 
     def __init__(self, num_kp: int = 10, temperature: float = 0.1,
-                 in_features: int = 35):
-        super().__init__(in_features, num_kp, temperature)
+                 in_features: int = 35, estimate_jacobian: bool = True,
+                 single_jacobian_map: bool = False):
+        super().__init__(in_features, num_kp, temperature,
+                         estimate_jacobian, single_jacobian_map)

@@ -8,11 +8,15 @@ motion's deformed copies of the downsampled source) and
 grids, any channel count; no model calls it).  All compute
 ``ops.warp.grid_sample`` with zeros padding: image [Bi, H, W, C] NHWC,
 grid [B, Ho, Wo, 2], each float32 or bfloat16, grid b samples image
-b // (B // Bi), float32 arithmetic rounded once to the image dtype.  The kernels are in
+b // (B // Bi), float32 arithmetic rounded once to the image dtype.
+``grid_sample_twolevel_b16`` replaces ``benchmarks/bench_warp_variants.py::
+twolevel_b16`` (K6; no model calls it): the same warp with
+``align_corners=False`` and its y pass rounded to bfloat16
+(``grid_sample_twolevel_b16_plain``).  The kernels are in
 ``csrc/warp.cu``.
 
-Each kernel is an operator, ``torch.ops.eamm.warp_wide``, ``warp_narrow``
-and ``warp_shared`` (``torch.library.custom_op``), so that ``torch.export``
+Each kernel is an operator, ``torch.ops.eamm.warp_wide``, ``warp_narrow``,
+``warp_shared`` and ``warp_wide_b16`` (``torch.library.custom_op``), so that ``torch.export``
 keeps it as a call: its CPU implementation is the plain version
 (``ops.warp.grid_sample``), its CUDA implementation launches the kernel or
 raises, and its fake implementation gives the output's shape.  The Python
@@ -38,7 +42,8 @@ import ctypes
 import torch
 
 from eamm_tpu_torch import kernels
-from eamm_tpu_torch.ops.warp import check_shared_batch, grid_sample
+from eamm_tpu_torch.ops.warp import (_unnormalize, check_shared_batch,
+                                     grid_sample)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # as in csrc/warp.cu: a block's shared-memory maximum on sm_90 and
@@ -74,15 +79,64 @@ def grid_sample_shared_plain(source: torch.Tensor, grids: torch.Tensor,
     return grid_sample_plain(source[None], grids, align_corners)
 
 
+def grid_sample_twolevel_b16_plain(image: torch.Tensor,
+                                   grid: torch.Tensor) -> torch.Tensor:
+    """The plain version of K6, ``twolevel_b16``'s two passes step by step
+    with its roundings (float32 arithmetic, zeros outside the image,
+    ``align_corners=False``): tents max(0, 1 - |f - i|) at the two taps'
+    own integers i, the y tents cast to the image dtype; each column's two
+    row products summed and rounded to bfloat16; the two columns weighted
+    by the x tents, summed and rounded to the image dtype."""
+    group = check_shared_batch(image, grid)
+    if image.dtype not in _DTYPES:
+        raise TypeError(f"grid_sample_twolevel_b16: image {image.dtype}; "
+                        "float32 or bfloat16")
+    Bi, H, W, C = image.shape
+    B, Ho, Wo, _ = grid.shape
+    g = grid.float()
+    fx = _unnormalize(g[..., 0], W, False)
+    fy = _unnormalize(g[..., 1], H, False)
+    x0, y0 = torch.floor(fx), torch.floor(fy)
+
+    def tent(f, i):
+        return torch.clamp_min(1.0 - torch.abs(f - i), 0.0)
+
+    src = image.reshape(Bi, H * W, C)
+    src_of = torch.arange(B, device=image.device) // group
+
+    def product(cx, cy, weight):
+        # fl(weight * s(cy, cx)), 0 outside the image: [B, Ho, Wo, C]
+        valid = (cx >= 0) & (cx <= W - 1) & (cy >= 0) & (cy <= H - 1)
+        idx = (cy.clamp(0, H - 1) * W + cx.clamp(0, W - 1)).long()
+        vals = src[src_of[:, None], idx.reshape(B, -1)].float()
+        prod = weight.reshape(B, -1, 1) * vals
+        return torch.where(valid.reshape(B, -1, 1), prod,
+                           torch.zeros_like(prod)).reshape(B, Ho, Wo, C)
+
+    ty0 = tent(fy, y0).to(image.dtype).float()
+    ty1 = tent(fy, y0 + 1).to(image.dtype).float()
+    out = None
+    for cx in (x0, x0 + 1):
+        rows = (product(cx, y0, ty0) + product(cx, y0 + 1, ty1)
+                ).to(torch.bfloat16).float()
+        term = tent(fx, cx)[..., None] * rows
+        out = term if out is None else out + term
+    return out.to(image.dtype)
+
+
 # the C interfaces of csrc/warp.cu's warps and csrc/warp_backward.cu's
-# backward warps: pointers, then the dtypes and sizes, then the stream
+# backward warps: pointers, then the dtypes and sizes (and align_corners,
+# which K6 does not take), then the stream
 _WARP_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_B16_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _BACKWARD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                   + [ctypes.c_void_p])
 
 
 def _launch(entry: str, image: torch.Tensor, grid: torch.Tensor,
-            align_corners: bool) -> torch.Tensor:
+            align_corners: bool | None) -> torch.Tensor:
+    """Launch ``entry`` of ``csrc/warp.cu``; ``align_corners`` None for K6,
+    whose C interface does not take it."""
     group = check_shared_batch(image, grid)
     if image.dtype not in _DTYPES or grid.dtype not in _DTYPES:
         raise TypeError(f"{entry}: image {image.dtype}, grid {grid.dtype}; "
@@ -99,11 +153,12 @@ def _launch(entry: str, image: torch.Tensor, grid: torch.Tensor,
         raise ValueError(f"{entry}: empty output {tuple(out.shape)}")
     if image.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError(f"{entry}: image and output need 16-byte alignment")
-    lib, fn = kernels.entry("warp", entry, _WARP_ARGS)
+    align = () if align_corners is None else (int(align_corners),)
+    lib, fn = kernels.entry("warp", entry,
+                            _WARP_ARGS if align else _B16_ARGS)
     code = fn(image.data_ptr(), g.data_ptr(), out.data_ptr(),
               _DTYPES[image.dtype], _DTYPES[g.dtype], B, Ho, Wo, group, H, W,
-              C, int(align_corners),
-              torch.cuda.current_stream(image.device).cuda_stream)
+              C, *align, torch.cuda.current_stream(image.device).cuda_stream)
     kernels.check(lib, code, entry)
     return out
 
@@ -161,8 +216,22 @@ def _warp_shared_cuda(source, grids, align_corners):
     return out
 
 
+@torch.library.custom_op("eamm::warp_wide_b16", mutates_args=(),
+                         device_types="cpu")
+def warp_wide_b16_op(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    return grid_sample_twolevel_b16_plain(image, grid)
+
+
+@warp_wide_b16_op.register_kernel("cuda")
+def _warp_wide_b16_cuda(image, grid):
+    out = _launch("eamm_warp_wide_b16", image, grid, None)
+    grid_sample_twolevel_b16.launches += 1
+    return out
+
+
 warp_wide_op.register_fake(lambda image, grid, align_corners:
                            _warp_fake(image, grid))
+warp_wide_b16_op.register_fake(_warp_fake)
 warp_narrow_op.register_fake(lambda image, grid, align_corners:
                              _warp_fake(image, grid))
 warp_shared_op.register_fake(lambda source, grids, align_corners:
@@ -371,6 +440,26 @@ def grid_sample_shared(source: torch.Tensor, grids: torch.Tensor,
     return warp_shared_op(source, grids, align_corners)
 
 
+def grid_sample_twolevel_b16(image: torch.Tensor, grid: torch.Tensor,
+                             tile: int = 256) -> torch.Tensor:
+    """K6: ``benchmarks/bench_warp_variants.py::twolevel_b16``, the bilinear
+    warp (zeros padding, ``align_corners=False``) of a float32 or bfloat16
+    image [Bi, H, W, C] by a grid [B, Ho, Wo, 2] with its y pass rounded to
+    bfloat16 -> [B, Ho, Wo, C] in the image dtype.  On CUDA the kernel
+    (C % 8 == 0), on the CPU its plain version.  ``tile``, the TPU
+    kernel's pixels a block, is checked (a positive int) and ignored: the
+    result does not depend on it."""
+    if isinstance(tile, bool) or not isinstance(tile, int) or tile < 1:
+        raise ValueError(f"grid_sample_twolevel_b16: tile must be a positive "
+                         f"int, got {tile!r}")
+    if image.device.type != "cpu":
+        if image.dim() != 4 or image.shape[-1] % 8:
+            raise ValueError(f"grid_sample_twolevel_b16: need [Bi,H,W,C] "
+                             f"with C % 8 == 0, got {tuple(image.shape)}")
+        _device_check("grid_sample_twolevel_b16", image)
+    return warp_wide_b16_op(image, grid)
+
+
 def store_only(out: torch.Tensor) -> torch.Tensor:
     """Write zeros over the bytes of CUDA tensor ``out`` (a multiple of 16)
     with 16-byte stores and nothing else; returns ``out``."""
@@ -390,5 +479,6 @@ def store_only(out: torch.Tensor) -> torch.Tensor:
 grid_sample_wide.launches = 0
 grid_sample_narrow.launches = 0
 grid_sample_shared.launches = 0
+grid_sample_twolevel_b16.launches = 0
 warp_wide_backward.launches = 0
 warp_narrow_backward.launches = 0

@@ -18,7 +18,11 @@ import numpy as np
 
 
 class MetricsLogger:
-    def __init__(self, log_dir: str, log_file_name: str = "log.txt"):
+    def __init__(self, log_dir: str, log_file_name: str = "log.txt",
+                 writes: bool = True):
+        """``writes`` False keeps the sums and writes nothing (the ranks
+        other than 0 of a distributed run)."""
+        self.writes = writes
         self.log_dir = os.path.abspath(log_dir)
         os.makedirs(self.log_dir, exist_ok=True)
         self.log_path = os.path.join(self.log_dir, log_file_name)
@@ -42,6 +46,8 @@ class MetricsLogger:
         self.loss_list.append(list(losses.values()))
 
     def write_scalars(self, step: int, losses: dict, prefix: str = "train"):
+        if not self.writes:
+            return
         with open(self.scalar_path, "a") as f:
             for k, v in losses.items():
                 f.write(json.dumps({"step": int(step),
@@ -60,10 +66,12 @@ class MetricsLogger:
         line = "; ".join(f"{name} - {value:.5f}"
                          for name, value in zip(self.names, mean))
         line = f"{str(epoch).zfill(8)}) {line} [{time.time() - self._t0:.0f}s]"
+        self.loss_list = []
+        if not self.writes:
+            return
         with open(self.log_path, "a") as f:
             f.write(line + "\n")
         print(line, flush=True)
-        self.loss_list = []
 
 
 def read_scalars(path: str) -> dict:

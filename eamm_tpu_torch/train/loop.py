@@ -13,6 +13,17 @@ reference's ``.pth.tar`` files (``load_frozen_torch``).  With every
 checkpoint of a part1 mode, the first sample goes through the generator
 into a diagnostic image (``train/visualizer.py``), which never stops
 training.
+
+Inside a distributed run (``parallel/mesh.py``: one process per device,
+the group joined before ``train`` is called) each rank loads its own
+slice of the batch stream (``batch_size`` is per process, as JAX's is per
+host), every rank takes the same number of batches an epoch, the models'
+BatchNorm layers take their statistics over the global batch
+(``sync_batchnorm``), the ranks' model states are checked equal once they
+are drawn and loaded, the steps all-reduce their gradients, and the
+metrics are averaged over the ranks; rank 0 alone writes the checkpoints,
+the logs, the TensorBoard events and the visualizer's images (with its own
+batch statistics), the others waiting at a barrier.
 """
 from __future__ import annotations
 
@@ -32,6 +43,10 @@ from eamm_tpu_torch.models.discriminator import MultiScaleDiscriminator
 from eamm_tpu_torch.models.vgg import Vgg19
 from eamm_tpu_torch.ops.augment import decode_and_augment
 from eamm_tpu_torch.ops.warp import grid_sample, resize_bilinear
+from eamm_tpu_torch.parallel.mesh import (all_reduce_mean, any_rank, barrier,
+                                          check_replicated, is_distributed,
+                                          local_statistics, rank_and_size,
+                                          sync_batchnorm)
 from eamm_tpu_torch.train import steps as S
 from eamm_tpu_torch.train.steps import _nchw, batch_statistics
 from eamm_tpu_torch.train.checkpoint import CheckpointManager, load_tree
@@ -201,16 +216,23 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
     step_fn = (S.make_part2_step(tp) if mode == "train_part2"
                else S.make_part1_step(tp))     # refuses grad_accum with GAN
 
+    rank, world = rank_and_size()
     dataset = build_dataset(config, is_train=True)
     repeated = DatasetRepeater(dataset, tp.get("num_repeats", 1))
-    loader = DataLoader(repeated, batch_size=tp["batch_size"], seed=seed)
+    loader = DataLoader(repeated, batch_size=tp["batch_size"], seed=seed,
+                        shard=(rank, world) if world > 1 else None)
+    # every rank takes as many batches an epoch (the collectives pair up)
+    per_epoch = len(repeated) // tp["batch_size"] // world
     # the schedule counts optimizer steps: K loader batches make one
-    steps_per_epoch = max(1, len(loader) // k_accum)
+    steps_per_epoch = max(1, per_epoch // k_accum)
     sched = dict(milestones_epochs=tp.get("epoch_milestones", (60, 90)),
                  steps_per_epoch=steps_per_epoch)
     lr_audio = float(tp.get("lr_audio_feature", 2e-4))
 
     models = build_models(config, mode, use_gan, seed, device)
+    if is_distributed():            # at every world size, 1 included
+        for m in models.values():
+            sync_batchnorm(m)
     if "vgg" in models:
         if vgg_state_dict is None:
             warnings.warn(
@@ -250,6 +272,7 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
                                 weights_only=False))
         if tree is not None:
             load_tree(state, tree)
+    check_replicated(models, device)
 
     multi_step = S.make_multi_step(step_fn)
     eval_loader = None
@@ -258,11 +281,14 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
         if len(eval_dataset) > 0:
             eval_loader = DataLoader(eval_dataset,
                                      batch_size=tp["batch_size"],
-                                     shuffle=False, seed=seed)
+                                     shuffle=False, seed=seed,
+                                     shard=(rank, world) if world > 1
+                                     else None)
+            eval_batches = len(eval_dataset) // tp["batch_size"] // world
     except (FileNotFoundError, OSError):
         pass
 
-    logger = MetricsLogger(log_dir)
+    logger = MetricsLogger(log_dir, writes=rank == 0)
     visualizer = Visualizer(**{k: v for k, v in
                                config.get("visualizer_params", {}).items()
                                if k in ("kp_size", "draw_border",
@@ -281,7 +307,8 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
             return
         names = list(pending[0][1])
         values = torch.stack([torch.stack([m[n] for n in names])
-                              for _, m in pending]).cpu().numpy()
+                              for _, m in pending])
+        values = all_reduce_mean(values).cpu().numpy()
         for (step_num, _), row in zip(pending, values):
             m = {n: float(v) for n, v in zip(names, row)}
             logger.log_iter(m)
@@ -289,14 +316,17 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
         pending.clear()
 
     def save(step_num: int):
-        ckpt.save(step_num, state)
-        try:
-            visualize_checkpoint(state, last_host,
-                                 os.path.join(log_dir,
-                                              f"{step_num:08d}-viz.png"),
-                                 visualizer, device)
-        except Exception as e:          # a diagnostic never stops training
-            print(f"visualization failed: {e!r}", flush=True)
+        if rank == 0:
+            ckpt.save(step_num, state)
+            try:
+                with local_statistics():
+                    visualize_checkpoint(
+                        state, last_host,
+                        os.path.join(log_dir, f"{step_num:08d}-viz.png"),
+                        visualizer, device)
+            except Exception as e:      # a diagnostic never stops training
+                print(f"visualization failed: {e!r}", flush=True)
+        barrier()
 
     preempted = {"sig": None}
     prev_handlers = {}
@@ -327,7 +357,7 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
 
     try:
         for epoch in range(num_epochs):
-            it = batches(iter(loader))
+            it = batches(itertools.islice(iter(loader), per_epoch))
             while True:
                 take = spd if max_steps is None else min(spd,
                                                           max_steps - total)
@@ -351,7 +381,7 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
                     flush_metrics()
                     save(step_num)
                 stop = max_steps is not None and total >= max_steps
-                if preempted["sig"] is not None:
+                if any_rank(preempted["sig"] is not None, device):
                     print(f"signal {preempted['sig']}: emergency "
                           f"checkpoint at step {step_num}", flush=True)
                     stop = True
@@ -363,10 +393,13 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
             flush_metrics()
             logger.log_epoch(epoch)
             if eval_loader is not None:
-                _eval_epoch(state, mode, tp, eval_loader, device, logger,
-                            start_step + total)
+                _eval_epoch(state, mode, tp,
+                            itertools.islice(eval_loader, eval_batches),
+                            device, logger, start_step + total)
         flush_metrics()
-        ckpt.save(start_step + total, state)
+        if rank == 0:
+            ckpt.save(start_step + total, state)
+        barrier()
         return state
     finally:
         for sig, handler in prev_handlers.items():
@@ -376,7 +409,8 @@ def train(config: dict, mode: str, log_dir: str, checkpoint: str | None = None,
 def _eval_epoch(state, mode: str, tp: dict, eval_loader, device, logger,
                 step: int):
     """The held-out loss: the mode's loss on plain batches, no update and
-    no BatchNorm statistics written."""
+    no BatchNorm statistics written; in a distributed run each rank's
+    batches, the means averaged over the ranks."""
     loss = S.part2_loss if mode == "train_part2" else S.part1_loss
     eval_tp = dict(tp, grad_accum=1)
     saved = {n: {k: v.clone() for k, v in state.models[n].state_dict().items()}
@@ -391,5 +425,8 @@ def _eval_epoch(state, mode: str, tp: dict, eval_loader, device, logger,
     for n, sd in saved.items():
         state.models[n].load_state_dict(sd)
     if values:
-        logger.write_scalars(step, {k: float(np.mean([v[k] for v in values]))
-                                    for k in values[0]}, prefix="eval")
+        names = list(values[0])
+        means = all_reduce_mean(torch.tensor(
+            [np.mean([v[k] for v in values]) for k in names],
+            dtype=torch.float64, device=device)).tolist()
+        logger.write_scalars(step, dict(zip(names, means)), prefix="eval")

@@ -31,6 +31,12 @@ What the modules see, as in JAX's ``train=True`` applies:
 
 The 16-frame window folds into the batch (BN statistics over B*T, the
 JAX package's documented deviation from the reference's per-frame loop).
+In a distributed run (``parallel/mesh.py``) each rank's step sees its own
+slice of the global batch: the gradients are all-reduced to their mean
+over the ranks before each optimizer step (after accumulating, with
+``grad_accum``), and the models' BatchNorm layers, made
+``GlobalBatchNorm2d`` by the loop, take their batch statistics over the
+global batch.
 The fine-tune's generator decodes the F supervised frames as one batch of
 F*B rows, frame-major (row f*B + b), from the source features tiled F
 times, as JAX does.  ``compute_dtype`` bfloat16 runs the forward under
@@ -50,6 +56,7 @@ import torch.nn as nn
 from eamm_tpu_torch.ops import tps as T
 from eamm_tpu_torch.ops.augment import decode_and_augment
 from eamm_tpu_torch.ops.motion import inv2x2
+from eamm_tpu_torch.parallel.mesh import all_reduce_grads
 from eamm_tpu_torch.train import losses as L
 from eamm_tpu_torch.train.optim import ScheduledAdam
 
@@ -254,7 +261,9 @@ def _accumulate_grads(state, train_params: dict, batch: dict, loss_fn):
     (zeroed first) -> (metrics, the last extra).  With ``grad_accum`` K > 1
     the batch's leaves are stacked [K, B_micro, ...]: the gradients are the
     mean over the K micro-batches, each of which starts from the BatchNorm
-    statistics the previous one left, and the metrics are their means."""
+    statistics the previous one left, and the metrics are their means.  In
+    a distributed run the accumulated gradients are then all-reduced to
+    their mean over the ranks."""
     state.optimizer.zero_grad()
     k = max(1, int(train_params.get("grad_accum", 1)))
     micro = ([{n: v[i] for n, v in batch.items()} for i in range(k)]
@@ -267,6 +276,8 @@ def _accumulate_grads(state, train_params: dict, batch: dict, loss_fn):
         (total / k).backward()
         for name, v in _metrics_f32(metrics).items():
             sums[name] = sums.get(name, 0.0) + v
+    all_reduce_grads(p for name in state.trainable
+                     for p in state.models[name].parameters())
     return {name: v / k for name, v in sums.items()}, extra
 
 
@@ -330,6 +341,7 @@ def discriminator_grads(state: Part1State, train_params: dict, batch: dict,
         fake_out = disc({k: _nchw(v) for k, v in pyr_fake.items()}, kp)
         loss = L.lsgan_discriminator_loss(real_out, fake_out, scales, weight)
     loss.backward()
+    all_reduce_grads(disc.parameters())
     disc.update_spectral_norms()
     return {"disc_gan": loss.detach().float()}
 

@@ -1,10 +1,12 @@
 """The port's emotion models against eamm_tpu's at narrow hourglass widths.
 
-The JAX module is initialised with every head and converted through
-``convert.emotion_{k,map}_state_dict`` into the port; there every BN's
-running statistics are set to its input's statistics on a seeded batch
-(``calibrate``), and the weights go back to JAX through
-``eamm_tpu.compat``.  Random statistics would not do: means drawn like the
+The port's model, which holds every head, is drawn with torch's default
+initialization from a seed; every BN's running statistics are set to its
+input's statistics on a seeded batch (``calibrate``), the weights go to
+JAX through ``eamm_tpu.compat`` and come back to the port through
+``convert.emotion_{k,map}_state_dict``, so both packages hold the
+converted weights.  (JAX's own init compiled an init program per model,
+~11 s each here.)  Random statistics would not do: means drawn like the
 other models' kill every ReLU of these 20-odd BN layers, and the JAX
 initial statistics leave a feature that barely depends on the image.  The
 EmotionMap Jacobian heads, which JAX initialises to zero, get random
@@ -88,14 +90,13 @@ def calibrate(port, seed: int, size: int) -> dict:
 
 
 def _build(jax_cls, port_cls, to_port, seed):
-    """A JAX model with every head's parameters and its port twin."""
-    x, kp = _inputs(seed)
-    jm = jax_cls(**NARROW)
-    v = _jit(jm.init, head="all")(jax.random.PRNGKey(seed), *_jax_args(
-        x[:1], {k: a[:1] for k, a in kp.items()}))
+    """A JAX model, its variables with every head's parameters, and its
+    port twin holding the same weights."""
+    torch.manual_seed(seed)
     port = port_cls(**NARROW)
+    v = calibrate(port, seed + 1, 128)
     port.load_state_dict(to_port(jax.tree.map(np.asarray, v)))
-    return jm, calibrate(port, seed + 1, 128), port
+    return jax_cls(**NARROW), v, port
 
 
 @pytest.fixture(scope="module")
@@ -122,7 +123,7 @@ def test_positional_embed_matches_jax():
 def test_emotion_k_heads_match_jax(emotion_k, head):
     jm, v, port = emotion_k
     x, kp = _inputs(11)
-    ref, ref_fake = jm.apply(v, *_jax_args(x, kp), head=head)
+    ref, ref_fake = _jit(jm.apply, head=head)(v, *_jax_args(x, kp))
     with torch.no_grad():
         ours, fake = port(*_port_args(x, kp), head=head)
     n = 10 if head.endswith("_10") else 4
@@ -136,9 +137,9 @@ def test_emotion_k_feature_and_emotion_feature_match_jax(emotion_k):
     jm, v, port = emotion_k
     x, kp = _inputs(12)
     jx, jv, jj = _jax_args(x, kp)
-    ref_feat = jm.apply(v, jx, method=JEmotionK.feature)
-    ref, ref_fake = jm.apply(v, ref_feat, jv, jj,
-                             method=JEmotionK.emotion_feature)
+    ref_feat = _jit(jm.apply, method=JEmotionK.feature)(v, jx)
+    ref, ref_fake = _jit(jm.apply, method=JEmotionK.emotion_feature)(
+        v, ref_feat, jv, jj)
     tx, tv, tj = _port_args(x, kp)
     with torch.no_grad():
         feat = port.feature(tx)
@@ -157,7 +158,7 @@ def test_emotion_map_heads_match_jax(emotion_map, head):
     plain version here), at K = 10 and K = 4 on the 58x58 maps."""
     jm, v, port = emotion_map
     x, kp = _inputs(21)
-    ref, ref_fake = jm.apply(v, *_jax_args(x, kp), head=head)
+    ref, ref_fake = _jit(jm.apply, head=head)(v, *_jax_args(x, kp))
     with torch.no_grad():
         ours, fake = port(*_port_args(x, kp), head=head)
     assert ours["jacobian"].shape == (2, 10 if head == "map" else 4, 2, 2)

@@ -1,7 +1,11 @@
 """The port's emotional render against the JAX pipeline on the CPU.
 
 One set of random weights at TINY widths with a narrow emotion hourglass
-(``chip_smoke.EMOTION_TINY_CONFIG``) drives both packages.  The emotion
+(``chip_smoke.EMOTION_TINY_CONFIG``) drives both packages: the port's,
+drawn from seed 0 and taken to JAX by ``eamm_tpu.compat``
+(``tests.test_torch_pipeline.jax_variables``; JAX's own random init
+compiles five init programs, most of this file's time on the CPU), then
+back to the port through ``convert.state_dicts_from_jax``.  The emotion
 model's BN statistics are calibrated on a seeded batch
 (``tests.test_torch_emotion.calibrate``), so that its feature depends on
 the frame and the displacements move the keypoints by a few hundredths
@@ -33,6 +37,7 @@ from eamm_tpu_torch.ops.mfcc import audio_to_mfcc_windows
 from tests.conftest import TINY_CONFIG
 from tests.test_infer_pipeline import _inputs
 from tests.test_torch_emotion import calibrate
+from tests.test_torch_pipeline import jax_variables
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
@@ -50,12 +55,10 @@ KP_TOL = 1e-4
 
 
 def _pair(emo_type: str):
-    jp = JaxPipeline.from_random(EMOTION_TINY_CONFIG,
-                                 options=JaxOptions(emo_type=emo_type, **OPTS))
-    v = jax.tree.map(np.asarray, jp.vars)
-    port = EammPipeline.from_jax_variables(
-        EMOTION_TINY_CONFIG, v,
+    port = EammPipeline.from_random(
+        EMOTION_TINY_CONFIG, 0,
         PipelineOptions(emo_type=emo_type, device="cpu", **OPTS))
+    v = jax_variables(port.models)
     v["emo_detector"] = calibrate(port.models["emo_detector"], 4, 256)
     jp = JaxPipeline(EMOTION_TINY_CONFIG, v,
                      JaxOptions(emo_type=emo_type, **OPTS))
@@ -152,13 +155,13 @@ def test_uint8_frames_are_scaled(linear_pair):
                                atol=0)
 
 
-def test_default_render_needs_frames(tiny_pipeline, linear_pair):
+def test_default_render_needs_frames(linear_pair):
     """Both packages render emotionally by default and refuse to without
     emotion frames."""
     jp, port = linear_pair
     src, wav, pose, _ = _inputs()
     assert jp.options.add_emo and port.options.add_emo
-    for pipe in (tiny_pipeline, port):
+    for pipe in (jp, port):
         with pytest.raises(ValueError, match="transformed_video"):
             pipe.render_uint8(src, wav, pose)
 

@@ -7,10 +7,11 @@ refused, the graphs call the ``eamm::`` operators (no plain version frozen
 in), and the loaded programs read the loaded weights.
 
 One module-scoped artifact at EMOTION_TINY_CONFIG widths: the batched
-program at buckets of 8 and 16 frames and the emotional ones (4 unique
-emotion frames).  Exporting takes ~5-10 s a program here, so the streamed
-and unbounded programs (10 more) are held to the live port by the slow
-test at the end."""
+program and the emotional one (4 unique emotion frames) at one bucket of
+8 frames, which every clip here fits; the choice among several buckets
+is held on the loaded artifact's bucket list.  Exporting takes ~5-10 s a
+program here, so the streamed and unbounded programs (10 more) are held
+to the live port by the slow test at the end."""
 import json
 import os
 import zipfile
@@ -48,11 +49,10 @@ def pipe():
 @pytest.fixture(scope="module")
 def artifact_path(pipe, tmp_path_factory):
     path = str(tmp_path_factory.mktemp("export") / "model.eammx")
-    meta = export_render_artifact(pipe, path, batch=1, frame_buckets=(8, 16),
+    meta = export_render_artifact(pipe, path, batch=1, frame_buckets=(8,),
                                   emotional=True, emo_frame_buckets=(4,))
-    assert meta["frame_buckets"] == [8, 16] and meta["device"] == "cpu"
-    assert sorted(meta["export_seconds"]) == ["1x16", "1x8", "emo_16x4",
-                                              "emo_8x4"]
+    assert meta["frame_buckets"] == [8] and meta["device"] == "cpu"
+    assert sorted(meta["export_seconds"]) == ["1x8", "emo_8x4"]
     return path
 
 
@@ -79,23 +79,28 @@ def test_batch_roundtrip_bitwise(pipe, art):
 
 
 def test_bucket_padding(pipe, art):
-    """A 12-frame clip rides the 16 bucket; ``render`` returns the padded
-    payload and the true length; past the largest bucket is refused."""
-    src, wav, pose, _ = _req(1, samples=8000)
+    """A 4-frame clip rides the 8 bucket; ``render`` returns the padded
+    payload and the true length; past the largest bucket is refused; with
+    buckets of 8 and 16 a clip takes the smallest that holds it."""
+    src, wav, pose, _ = _req(1, samples=2700)
     got = art.render_uint8(src[None], [wav], [pose])
-    assert got.shape[1] == 12
+    assert got.shape[1] == 4
     np.testing.assert_array_equal(
         got, pipe.render_batch_uint8(src[None], [wav], [pose]))
     rng = np.random.RandomState(1)
-    (frames,), t = art.render(src[None], rng.randn(1, 12, 28, 12),
-                              rng.randn(1, 12, 6))
-    assert t == 12 and frames.shape[1] == 16
-    assert art.bucket_for(3) == 8 and art.bucket_for(9) == 16
+    (frames,), t = art.render(src[None], rng.randn(1, 5, 28, 12),
+                              rng.randn(1, 5, 6))
+    assert t == 5 and frames.shape[1] == 8
+    assert art.bucket_for(3) == 8
     with pytest.raises(ValueError, match="largest exported bucket"):
-        art.bucket_for(17)
+        art.bucket_for(9)
     with pytest.raises(ValueError, match="batch"):
         art.render(np.stack([src] * 2), rng.randn(2, 8, 28, 12),
                    rng.randn(2, 8, 6))
+    assert art.bucket_for(8, [8, 16]) == 8
+    assert art.bucket_for(9, [16, 8]) == 16
+    with pytest.raises(ValueError, match="largest exported bucket"):
+        art.bucket_for(17, [8, 16])
 
 
 def test_emotional_bitwise(pipe, art):

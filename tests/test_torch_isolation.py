@@ -59,7 +59,9 @@ ENTRY_MODULES = ["eamm_tpu_torch.serve", "eamm_tpu_torch.serve_http",
                  "eamm_tpu_torch.models.aux", "eamm_tpu_torch.ops.adain",
                  "eamm_tpu_torch.data.pose",
                  "eamm_tpu_torch.utils.profiling",
-                 "eamm_tpu_torch.cli.preprocess"]
+                 "eamm_tpu_torch.cli.preprocess",
+                 # the mesh
+                 "eamm_tpu_torch.parallel", "eamm_tpu_torch.parallel.mesh"]
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -1,8 +1,12 @@
 """eamm_tpu_torch models against the eamm_tpu modules at narrow widths: the
-JAX module is initialised, its variables go through
-``convert.state_dicts_from_jax`` into the port, and both run on the same
-numpy inputs.  Tolerance 1e-3, the per-module bound the JAX package meets
-against its torch oracles (PARITY.md)."""
+port's module is drawn from a seed (torch's default initialization), its
+weights go to JAX through ``eamm_tpu.compat``'s converters of the
+reference checkpoints (JAX's own init compiled an init program per
+module, most of this file's time on the CPU), the JAX variables (their
+BatchNorm statistics randomized) come back into the port through
+``convert.state_dicts_from_jax``, and both run on the same numpy inputs.
+Tolerance 1e-3, the per-module bound the JAX package meets against its
+torch oracles (PARITY.md)."""
 import functools
 
 import jax
@@ -11,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from eamm_tpu import compat
 from eamm_tpu.models import (ATNet as JATNet, KPDetector as JKPDetector,
                              KPDetectorA as JKPDetectorA,
                              OcclusionAwareGenerator as JGenerator)
@@ -79,6 +84,20 @@ def _nchw(x):
     return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
 
 
+def _drawn(port_cls, seed: int, **kwargs):
+    """The port's module drawn from ``seed`` (torch's default
+    initialization), in eval mode."""
+    torch.manual_seed(seed)
+    return port_cls(**kwargs).eval()
+
+
+def _from_port(port, to_jax) -> dict:
+    """``port``'s weights as JAX variables, by the compat converter
+    ``to_jax`` of the reference checkpoints."""
+    return _np_tree(to_jax({k: v.detach().numpy()
+                            for k, v in port.state_dict().items()}))
+
+
 def _perturb_heads(variables, rng):
     """JAX initialises the Jacobian heads to zero weight; give them weights
     so the expectation of the Jacobian maps is really tested."""
@@ -92,11 +111,11 @@ def test_kp_detector():
     jm = JKPDetector(num_kp=10, block_expansion=8, max_features=32,
                      num_blocks=3, temperature=0.1, scale_factor=0.25)
     img = rng.rand(2, 128, 128, 3).astype(np.float32)
+    port = _drawn(KPDetector, 0, num_kp=10, block_expansion=8,
+                  max_features=32, num_blocks=3)
     v = _perturb_heads(_randomize_stats(
-        _jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(img[:1])), 1), rng)
+        _from_port(port, compat.convert_kp_detector), 1), rng)
     ref = _jit(jm.apply)(v, jnp.asarray(img))
-    port = KPDetector(num_kp=10, block_expansion=8, max_features=32,
-                      num_blocks=3).eval()
     port.load_state_dict(convert.kp_detector_state_dict(v))
     with torch.no_grad():
         ours = port(_nchw(img))
@@ -108,10 +127,9 @@ def test_kp_detector_a():
     rng = np.random.RandomState(1)
     jm = JKPDetectorA(num_kp=10, temperature=0.1)
     fmap = rng.randn(3, 64, 64, 35).astype(np.float32)
-    v = _perturb_heads(_np_tree(_jit(jm.init)(jax.random.PRNGKey(1),
-                                              jnp.asarray(fmap[:1]))), rng)
+    port = _drawn(KPDetectorA, 1)
+    v = _perturb_heads(_from_port(port, compat.convert_kp_detector_a), rng)
     ref = _jit(jm.apply)(v, jnp.asarray(fmap))
-    port = KPDetectorA().eval()
     port.load_state_dict(convert.kp_detector_a_state_dict(v))
     with torch.no_grad():
         ours = port(_nchw(fmap))
@@ -124,10 +142,8 @@ def generators():
     rng = np.random.RandomState(2)
     jm = JGenerator(**GEN)
     src = rng.rand(1, 64, 64, 3).astype(np.float32)
-    kp0 = _j(_kp(rng, 1))
-    v = _randomize_stats(_jit(jm.init)(jax.random.PRNGKey(2),
-                                       jnp.asarray(src), kp0, kp0), 3)
-    port = OcclusionAwareGenerator(**GEN).eval()
+    port = _drawn(OcclusionAwareGenerator, 2, **GEN)
+    v = _randomize_stats(_from_port(port, compat.convert_generator), 3)
     port.load_state_dict(convert.generator_state_dict(v))
     return jm, v, port, src
 
@@ -169,14 +185,11 @@ def test_atnet():
     img = rng.rand(1, 256, 256, 3).astype(np.float32)
     audio = rng.randn(1, 3, 28, 12).astype(np.float32)
     pose = rng.randn(1, 3, 6).astype(np.float32)
-    v = _randomize_stats(_jit(jm.init)(jax.random.PRNGKey(3),
-                                       jnp.asarray(img),
-                                       jnp.asarray(audio[:, :1]),
-                                       jnp.asarray(pose[:, :1])), 7)
+    port = _drawn(ATNet, 3)
+    v = _randomize_stats(_from_port(port, compat.convert_atnet), 7)
     ref = _jit(jm.apply, audio_weight=1.6)(
         v, jnp.asarray(img), jnp.asarray(audio),
         jnp.asarray(pose))                                # [B,T,64,64,35]
-    port = ATNet().eval()
     port.load_state_dict(convert.atnet_state_dict(v))
     with torch.no_grad():
         ours = port(_nchw(img), torch.from_numpy(audio),

@@ -1,16 +1,21 @@
 """The port's neutral render against the JAX pipeline, end to end on the CPU.
 
-The conftest ``tiny_pipeline`` (TINY_CONFIG, frame_chunk 8, time_bucket 8)
-renders the 1 s clip of tests/test_infer_pipeline.py; the port, built from
-the same variables through convert.state_dicts_from_jax, renders it with
-the kernels' plain versions.  Bound: per-frame mean |difference| max < 1e-2
-and mean < 3e-3, the bound tests/test_e2e_parity.py holds the JAX pipeline
-to against the torch reference."""
+A JAX pipeline (TINY_CONFIG, frame_chunk 8, time_bucket 8) renders the 1 s
+clip of tests/test_infer_pipeline.py; the port, built from the same
+variables through convert.state_dicts_from_jax, renders it with the
+kernels' plain versions.  The variables are the port's seeded random
+weights taken to JAX by ``eamm_tpu.compat``'s converters of the reference
+checkpoints (``jax_variables``): JAX's own random init compiles five
+init programs, which made up most of these files' time on the CPU.
+Bound: per-frame mean |difference| max < 1e-2 and mean < 3e-3, the bound
+tests/test_e2e_parity.py holds the JAX pipeline to against the torch
+reference."""
 import jax
 import numpy as np
 import pytest
 import torch
 
+from eamm_tpu import compat
 from eamm_tpu.infer import EammPipeline as JaxPipeline
 from eamm_tpu.infer import PipelineOptions as JaxOptions
 from eamm_tpu.infer.pipeline import prepare_pose_np as jax_prepare_pose_np
@@ -32,16 +37,42 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
+def jax_variables(models: dict) -> dict:
+    """The five port models' weights as a JAX pipeline's variables, by
+    ``eamm_tpu.compat``'s converters of the reference checkpoints (the
+    port keeps the reference's state_dict names); EmotionMap for a map
+    head, EmotionK otherwise."""
+    sd = {n: {k: v.detach().numpy() for k, v in m.state_dict().items()}
+          for n, m in models.items()}
+    emo = (compat.convert_emotion_map
+           if type(models["emo_detector"]).__name__ == "EmotionMap"
+           else compat.convert_emotion_k)
+    return {"generator": compat.convert_generator(sd["generator"]),
+            "kp_detector": compat.convert_kp_detector(sd["kp_detector"]),
+            "kp_detector_a": compat.convert_kp_detector_a(
+                sd["kp_detector_a"]),
+            "audio_feature": compat.convert_atnet(sd["audio_feature"]),
+            "emo_detector": emo(sd["emo_detector"])}
+
+
 @pytest.fixture(scope="module")
-def port(tiny_pipeline):
-    variables = jax.tree.map(np.asarray, tiny_pipeline.vars)
+def jax_pipe():
+    """A JAX pipeline over the port's weights drawn from seed 0."""
+    drawn = EammPipeline.from_random(TINY_CONFIG, 0, PipelineOptions(**OPTS))
+    return JaxPipeline(TINY_CONFIG, jax_variables(drawn.models),
+                       JaxOptions(frame_chunk=8, time_bucket=8))
+
+
+@pytest.fixture(scope="module")
+def port(jax_pipe):
+    variables = jax.tree.map(np.asarray, jax_pipe.vars)
     return EammPipeline.from_jax_variables(TINY_CONFIG, variables,
                                            PipelineOptions(**OPTS))
 
 
-def test_neutral_render_matches_jax(tiny_pipeline, port):
+def test_neutral_render_matches_jax(jax_pipe, port):
     src, wav, pose, _ = _inputs()
-    ref = tiny_pipeline.render(src, wav, pose, add_emo=False)
+    ref = jax_pipe.render(src, wav, pose, add_emo=False)
     ours = port.render(src, wav, pose, add_emo=False)
     assert ours.shape == ref.shape and ours.dtype == np.float32
     l1 = np.abs(ours - ref).mean(axis=(1, 2, 3))
@@ -84,12 +115,12 @@ def test_unported_options_raise(port):
 
 
 @pytest.fixture(scope="module")
-def yuv_pair(tiny_pipeline, port):
+def yuv_pair(jax_pipe, port):
     """A JAX pipeline and the port on the same weights, both delivering
     yuv420 planes, with relative keypoint movement, and streaming in
     chunks of 16 frames."""
     options = dict(segment_frames=16, transfer_format="yuv420", relative=True)
-    jp = JaxPipeline(TINY_CONFIG, tiny_pipeline.vars,
+    jp = JaxPipeline(TINY_CONFIG, jax_pipe.vars,
                      JaxOptions(frame_chunk=8, time_bucket=8, **options))
     ours = EammPipeline(TINY_CONFIG, models=port.models,
                         options=PipelineOptions(**OPTS, **options))

@@ -22,6 +22,7 @@ from eamm_tpu_torch.models.discriminator import MultiScaleDiscriminator
 from eamm_tpu_torch.models.vgg import Vgg19
 from eamm_tpu_torch.ops import augment
 from eamm_tpu_torch.train import losses
+from tests.test_torch_models import _jit
 
 OP_TOL = 1e-5
 MODULE_TOL = 1e-3
@@ -74,9 +75,9 @@ def test_discriminator_matches_jax(sn, use_kp):
     jm = JaxDiscriminator(**kw)
     jpyr = {k: jnp.asarray(v) for k, v in pyr.items()}
     jkp = {"value": jnp.asarray(kp["value"])}
-    variables = _np(jm.init(jax.random.PRNGKey(0), jpyr, jkp))
-    ref, upd = jm.apply(variables, jpyr, jkp, update_stats=True,
-                        mutable=["batch_stats"])
+    variables = _np(_jit(jm.init)(jax.random.PRNGKey(0), jpyr, jkp))
+    ref, upd = _jit(jm.apply, update_stats=True, mutable=["batch_stats"])(
+        variables, jpyr, jkp)
 
     model = MultiScaleDiscriminator(**kw)
     model.load_state_dict(state_dicts_from_jax(
@@ -106,8 +107,8 @@ def test_vgg_matches_jax():
     rng = np.random.RandomState(1)
     x = rng.rand(2, 32, 32, 3).astype(np.float32)
     jm = JaxVgg19()
-    variables = _np(jm.init(jax.random.PRNGKey(1), jnp.asarray(x)))
-    ref = jm.apply(variables, jnp.asarray(x))
+    variables = _np(_jit(jm.init)(jax.random.PRNGKey(1), jnp.asarray(x)))
+    ref = _jit(jm.apply)(variables, jnp.asarray(x))
     sd = state_dicts_from_jax({"vgg": variables})["vgg"]
     model = Vgg19()
     model.load_torchvision({**sd, "features.34.weight": torch.zeros(1),
