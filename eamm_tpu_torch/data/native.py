@@ -82,16 +82,24 @@ def native_available() -> bool:
     return _load() is not None
 
 
+_no_imageio = False             # set once ``import imageio.v2`` failed
+
+
 def route() -> str:
     """The decoder ``decode_batch`` uses: 'native', else 'imageio' where it
-    imports, else 'zlib'."""
+    imports, else 'zlib'.  A failed import of imageio is remembered, so a
+    host without it does not search for it again at every batch."""
+    global _no_imageio
     if _load() is not None:
         return "native"
-    try:
-        import imageio.v2  # noqa: F401
-    except ImportError:
-        return "zlib"
-    return "imageio"
+    if not _no_imageio:
+        try:
+            import imageio.v2  # noqa: F401
+        except ImportError:
+            _no_imageio = True
+        else:
+            return "imageio"
+    return "zlib"
 
 
 def build_error() -> str | None:

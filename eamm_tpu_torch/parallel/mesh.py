@@ -20,8 +20,11 @@ shards; PyTorch has two, and the port uses each where it fits:
   JAX mesh's SyncBN), and the gradients are all-reduced to their mean
   before the optimizer step (``all_reduce_grads``).
 
-``shard_batch``, ``shard_stacked_batch`` and ``replicate_tree`` keep the
-JAX names: on a single-process mesh they return one piece per device.
+``make_mesh``, ``host_cpu_mesh`` and ``replicate_tree`` keep the JAX
+names.  JAX's ``shard_batch``, ``shard_stacked_batch`` and
+``make_mesh_for_batch`` have no counterpart: training shards through the
+loader, one process per device, and the batched routes split identities
+by ``split_sizes``, which takes any N.
 """
 from __future__ import annotations
 
@@ -76,16 +79,6 @@ def host_cpu_mesh(n_devices: int, axis_name: str = "data") -> Mesh:
     return Mesh(("cpu",) * n_devices, axis_name)
 
 
-def make_mesh_for_batch(batch_size: int, devices=None,
-                        axis_name: str = "data") -> Mesh:
-    """1-D mesh over the largest device prefix that divides batch_size."""
-    devices = list(make_mesh(devices).devices)
-    n = len(devices)
-    while n > 1 and batch_size % n != 0:
-        n -= 1
-    return Mesh(tuple(devices[:n]), axis_name)
-
-
 def device_context(device: torch.device):
     """Make ``device`` the current CUDA device for the block, so that the
     port's kernels launch there (their C launchers take the current
@@ -108,28 +101,6 @@ def _map(tree, fn):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map(v, fn) for v in tree)
     return fn(tree)
-
-
-def _shard(tree, mesh: Mesh, axis: int) -> list:
-    leaves = []
-    _map(tree, leaves.append)
-    n = leaves[0].shape[axis]
-    sizes = split_sizes(n, mesh.size)
-    starts = [sum(sizes[:i]) for i in range(mesh.size)]
-    return [_map(tree, lambda x, a=a, k=k, d=d: torch.as_tensor(x).narrow(
-        axis, a, k).to(d)) for a, k, d in zip(starts, sizes, mesh.devices)]
-
-
-def shard_batch(tree, mesh: Mesh) -> list:
-    """A tree of arrays -> one tree per device of ``mesh``, each holding
-    its contiguous shard of the leading (batch) axis on that device."""
-    return _shard(tree, mesh, 0)
-
-
-def shard_stacked_batch(tree, mesh: Mesh) -> list:
-    """A [K, B, ...] stack of K batches -> one tree per device, the K axis
-    whole and the batch axis sharded."""
-    return _shard(tree, mesh, 1)
 
 
 def replicate_tree(tree, mesh: Mesh) -> list:
@@ -358,8 +329,7 @@ def sync_batchnorm(module: nn.Module) -> nn.Module:
 
 
 __all__ = ["Mesh", "canonical_device", "make_mesh", "host_cpu_mesh",
-           "make_mesh_for_batch", "device_context", "split_sizes",
-           "shard_batch", "shard_stacked_batch", "replicate_tree",
+           "device_context", "split_sizes", "replicate_tree",
            "torchrun_env", "init_distributed", "is_distributed",
            "rank_and_size", "barrier", "all_reduce_mean", "any_rank",
            "all_reduce_grads", "checksum", "check_replicated",

@@ -6,12 +6,12 @@ a failed export leaves no file, a wrong device or format version is
 refused, the graphs call the ``eamm::`` operators (no plain version frozen
 in), and the loaded programs read the loaded weights.
 
-One module-scoped artifact at EMOTION_TINY_CONFIG widths: the batched
+Two module-scoped artifacts at EMOTION_TINY_CONFIG widths: the batched
 program and the emotional one (4 unique emotion frames) at one bucket of
-8 frames, which every clip here fits; the choice among several buckets
-is held on the loaded artifact's bucket list.  Exporting takes ~5-10 s a
-program here, so the streamed and unbounded programs (10 more) are held
-to the live port by the slow test at the end."""
+8 frames, and the batched program alone at buckets of 8 and 16 frames,
+on which a clip takes the smallest bucket that holds it.  Exporting takes
+~5-10 s a program here, so the streamed and unbounded programs (10 more)
+are held to the live port by the slow test at the end."""
 import json
 import os
 import zipfile
@@ -61,6 +61,16 @@ def art(artifact_path):
     return RenderArtifact.load(artifact_path, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def bucket_art(pipe, tmp_path_factory):
+    """The batched program alone at buckets of 8 and 16 frames."""
+    path = str(tmp_path_factory.mktemp("buckets") / "model.eammx")
+    meta = export_render_artifact(pipe, path, batch=1, frame_buckets=(8, 16))
+    assert meta["frame_buckets"] == [8, 16]
+    assert sorted(meta["export_seconds"]) == ["1x16", "1x8"]
+    return RenderArtifact.load(path, device="cpu")
+
+
 def _req(seed, samples=5000, emotion=0):
     rng = np.random.RandomState(seed)
     return (rng.rand(256, 256, 3).astype(np.float32),
@@ -78,29 +88,25 @@ def test_batch_roundtrip_bitwise(pipe, art):
         got, pipe.render_batch_uint8(src[None], [wav], [pose]))
 
 
-def test_bucket_padding(pipe, art):
-    """A 4-frame clip rides the 8 bucket; ``render`` returns the padded
-    payload and the true length; past the largest bucket is refused; with
-    buckets of 8 and 16 a clip takes the smallest that holds it."""
-    src, wav, pose, _ = _req(1, samples=2700)
+def test_bucket_padding(pipe, bucket_art):
+    """A 12-frame clip rides the 16 bucket; ``render`` returns the padded
+    payload and the true length; past the largest bucket is refused."""
+    art = bucket_art
+    src, wav, pose, _ = _req(1, samples=8000)
     got = art.render_uint8(src[None], [wav], [pose])
-    assert got.shape[1] == 4
+    assert got.shape[1] == 12
     np.testing.assert_array_equal(
         got, pipe.render_batch_uint8(src[None], [wav], [pose]))
     rng = np.random.RandomState(1)
-    (frames,), t = art.render(src[None], rng.randn(1, 5, 28, 12),
-                              rng.randn(1, 5, 6))
-    assert t == 5 and frames.shape[1] == 8
-    assert art.bucket_for(3) == 8
+    (frames,), t = art.render(src[None], rng.randn(1, 12, 28, 12),
+                              rng.randn(1, 12, 6))
+    assert t == 12 and frames.shape[1] == 16
+    assert art.bucket_for(3) == 8 and art.bucket_for(9) == 16
     with pytest.raises(ValueError, match="largest exported bucket"):
-        art.bucket_for(9)
+        art.bucket_for(17)
     with pytest.raises(ValueError, match="batch"):
         art.render(np.stack([src] * 2), rng.randn(2, 8, 28, 12),
                    rng.randn(2, 8, 6))
-    assert art.bucket_for(8, [8, 16]) == 8
-    assert art.bucket_for(9, [16, 8]) == 16
-    with pytest.raises(ValueError, match="largest exported bucket"):
-        art.bucket_for(17, [8, 16])
 
 
 def test_emotional_bitwise(pipe, art):
@@ -118,12 +124,14 @@ def test_emotional_bitwise(pipe, art):
     assert diff.max() <= 1 and (diff != 0).mean() < 1e-3
 
 
-def test_graphs_call_the_kernel_operators(art):
+def test_graphs_call_the_kernel_operators(art, bucket_art):
     """Each warp and keypoint expectation is an ``eamm::`` call in the
     graph, once per decode chunk and per keypoint head, so a program
     exported on the card launches the kernels, never a plain version."""
     per_chunk = {"eamm.warp_wide.default": 1, "eamm.warp_narrow.default": 1}
-    for name, program in art._programs.items():
+    programs = {**art._programs, **bucket_art._programs}
+    assert len(programs) == 3                 # 1x8, emo_8x4 and 1x16
+    for name, program in programs.items():
         calls = [str(n.target) for n in program.graph.nodes
                  if str(n.target).startswith("eamm.")]
         t = int(name.split("x")[1] if name[0].isdigit()

@@ -1,13 +1,12 @@
 """``eamm-torch-export`` then ``eamm-torch-serve --artifact`` on the CPU,
 following tests/test_export.py's serving tests: the artifact written by the
 export CLI from the reference's three checkpoints (EMOTION_TINY_CONFIG
-widths, batch 2, one bucket of 16 frames, the CLI's frame chunk, which
-every clip here fits) is served by the serve CLI, whose ``RenderServer``
-runs the ``ArtifactPipeline``; its results over HTTP are bitwise the
-artifact's own calls, a stream without streamed programs is one
-whole-clip segment, and an emotional request or an emotion registration
-fails as it does for a JAX artifact (no emotional programs, no
-``prepare_emotion``)."""
+widths, batch 2, buckets of 16 and 32 frames: the CLI's frame chunk is 16)
+is served by the serve CLI, whose ``RenderServer`` runs the
+``ArtifactPipeline``; its results over HTTP are bitwise the artifact's own
+calls, a stream without streamed programs is one whole-clip segment, and an
+emotional request or an emotion registration fails as it does for a JAX
+artifact (no emotional programs, no ``prepare_emotion``)."""
 import threading
 import urllib.error
 import urllib.request
@@ -53,7 +52,7 @@ def exported(tmp_path_factory):
     meta = export_cli.main([
         "--config", str(d / "config.yaml"), "--checkpoint", paths["fomm"],
         "--audio_checkpoint", paths["audio"], "--emo_checkpoint",
-        paths["emo"], "--out", out, "--batch", "2", "--frames", "16",
+        paths["emo"], "--out", out, "--batch", "2", "--frames", "16", "32",
         "--cpu"])
     return out, meta
 
@@ -95,9 +94,9 @@ def _post(url, body, method="POST"):
 
 def test_export_cli_meta(exported):
     path, meta = exported
-    assert meta["batch"] == 2 and meta["frame_buckets"] == [16]
+    assert meta["batch"] == 2 and meta["frame_buckets"] == [16, 32]
     assert meta["device"] == "cpu" and meta["transfer_format"] == "rgb"
-    assert sorted(meta["export_seconds"]) == ["2x16"]
+    assert sorted(meta["export_seconds"]) == ["2x16", "2x32"]
     assert meta["emotional"] is meta["streaming"] is meta["unbounded"] is None
 
 

@@ -14,9 +14,8 @@ import torch
 
 from chip_smoke import EMOTION_TINY_CONFIG
 from eamm_tpu_torch.infer import EammPipeline, PipelineOptions
-from eamm_tpu_torch.parallel import (Mesh, host_cpu_mesh, make_mesh_for_batch,
-                                     replicate_tree, shard_batch,
-                                     shard_stacked_batch)
+from eamm_tpu_torch.parallel import (Mesh, host_cpu_mesh, replicate_tree,
+                                     split_sizes)
 from eamm_tpu_torch.serve import RenderServer
 
 OPTS = dict(frame_chunk=8, time_bucket=8, device="cpu")
@@ -118,14 +117,14 @@ def test_server_over_device_mesh(pipe):
 
 
 def test_mesh_helpers():
-    """The JAX names' semantics on a single-process mesh."""
+    """The mesh, the shard sizes the batched routes take (any N, the
+    larger shards first) and ``replicate_tree`` on a single-process
+    mesh."""
     mesh = Mesh(("cpu", "cpu", "cpu"))
-    assert mesh.size == 3 and make_mesh_for_batch(4, mesh.devices).size == 2
-    x = np.arange(7 * 2).reshape(7, 2)
-    shards = shard_batch({"x": x}, mesh)
-    assert [s["x"].shape[0] for s in shards] == [3, 2, 2]
-    assert np.array_equal(np.concatenate([s["x"].numpy() for s in shards]), x)
-    stacked = shard_stacked_batch([np.zeros((2, 6))], mesh)
-    assert [s[0].shape for s in stacked] == [(2, 2)] * 3
+    assert mesh.size == 3 and host_cpu_mesh(3) == mesh
+    assert split_sizes(7, 3) == [3, 2, 2] and split_sizes(2, 3) == [1, 1, 0]
     module = torch.nn.Linear(2, 2)
     assert all(m is module for m in replicate_tree(module, mesh))
+    x = torch.arange(4.0)
+    assert all(t.data_ptr() == x.data_ptr()
+               for t in replicate_tree({"x": x}, mesh)[0].values())

@@ -106,8 +106,9 @@ def test_decode_batch_falls_back_to_zlib(files, monkeypatch):
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_lib_error", "no png.h")
     monkeypatch.setitem(sys.modules, "imageio.v2", None)
+    monkeypatch.setattr(native, "_no_imageio", False)
     paths = [p for p, _ in files]
-    assert native.route() == "zlib"
+    assert native.route() == "zlib" and native._no_imageio
     assert "zlib route" in native.build_error()
     assert np.array_equal(native.decode_batch(paths, 20, 13),
                           native.decode_zlib(paths, 20, 13))
