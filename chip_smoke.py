@@ -398,13 +398,19 @@ BACKWARD_KERNELS = {
 }
 KERNELS.update(BACKWARD_KERNELS)
 TRAIN_KERNELS = RENDER_KERNELS + tuple(BACKWARD_KERNELS)
-# each kernel's __global__ function in csrc/, as a profile names it
-KERNEL_SYMBOLS = {"warp_wide": "warp_wide_kernel",
-                  "warp_narrow": "warp_narrow_kernel",
-                  "kp_expectation": "kp_expectation_kernel",
-                  "warp_wide_backward": "warp_wide_backward_kernel",
-                  "warp_narrow_backward": "warp_narrow_backward_kernel",
-                  "kp_expectation_backward": "kp_expectation_backward_kernel"}
+# each kernel's __global__ functions in csrc/, as a profile names them
+# (K1b's gather launches its bins' three and the grid gradient's too)
+KERNEL_SYMBOLS = {"warp_wide": ("warp_wide_kernel",),
+                  "warp_narrow": ("warp_narrow_kernel",),
+                  "kp_expectation": ("kp_expectation_kernel",),
+                  "warp_wide_backward": ("warp_wide_backward_kernel",
+                                         "bin_count_kernel",
+                                         "bin_scan_kernel",
+                                         "bin_place_kernel",
+                                         "grid_grad_kernel"),
+                  "warp_narrow_backward": ("warp_narrow_backward_kernel",),
+                  "kp_expectation_backward": (
+                      "kp_expectation_backward_kernel",)}
 # the backward kernels' bounds against their plain versions: float32
 # relative L2 error and max |difference| / max |reference| (atomics
 # reorder the sums); bfloat16 both within 1e-2
@@ -455,11 +461,12 @@ def uint8_diff(a: np.ndarray, b: np.ndarray) -> dict:
 
 def warp_case(Bi: int, B: int, hw: tuple[int, int], C: int,
               dtype: torch.dtype, gen: torch.Generator,
-              grid_dtype: torch.dtype | None = None, outside: bool = False):
-    """A random [Bi,64,64,C] image and a [B,*hw,2] grid in U(-1.2, 1.2),
-    the grid in the image dtype unless ``grid_dtype`` is given; with
+              grid_dtype: torch.dtype | None = None, outside: bool = False,
+              image_hw: tuple[int, int] = (64, 64)):
+    """A random [Bi,*image_hw,C] image and a [B,*hw,2] grid in U(-1.2,
+    1.2), the grid in the image dtype unless ``grid_dtype`` is given; with
     ``outside``, |x| and |y| in [1.5, 3], so every corner lies outside."""
-    image = torch.randn((Bi, 64, 64, C), generator=gen, device="cuda"
+    image = torch.randn((Bi, *image_hw, C), generator=gen, device="cuda"
                         ).to(dtype)
     grid = torch.rand((B, *hw, 2), generator=gen, device="cuda") * 2.4 - 1.2
     if outside:
@@ -604,21 +611,41 @@ def parity(cases: list, worst: dict | None = None) -> dict:
 
 def warp_grad_case(Bi: int, B: int, C: int, dtype: torch.dtype,
                    gen: torch.Generator, hw=(64, 64), need=(True, True),
-                   align: bool = False):
+                   align: bool = False, image_hw=(64, 64),
+                   grid: str = "random"):
     """(grad_out, image, grid, align_corners, need_image, need_grid) for a
-    warp backward: a random [Bi,64,64,C] image, a [B,*hw,2] grid in
-    U(-1.2, 1.2) and a random output gradient, in ``dtype``."""
-    image, grid = warp_case(Bi, B, hw, C, dtype, gen)
+    warp backward: a random [Bi,*image_hw,C] image, a [B,*hw,2] grid and a
+    random output gradient, in ``dtype``.  ``grid`` "random": U(-1.2,
+    1.2), spread over the image and past its edges; "near_identity": each
+    output pixel's own place in the image plus N(0, 0.03) (about a pixel
+    at 64), as the training path's deformations are; "outside": every
+    corner outside the image."""
+    image, g = warp_case(Bi, B, hw, C, dtype, gen, outside=grid == "outside",
+                         image_hw=image_hw)
+    if grid == "near_identity":
+        g = (identity_grid(hw, align) + 0.03 * torch.randn(
+            (B, *hw, 2), generator=gen, device="cuda")).to(dtype)
     grad_out = torch.randn((B, *hw, C), generator=gen, device="cuda"
                            ).to(dtype)
-    return (grad_out, image, grid, align, *need)
+    return (grad_out, image, g, align, *need)
+
+
+def identity_grid(hw, align: bool) -> torch.Tensor:
+    """The [*hw, 2] grid that samples each output pixel's own place."""
+    axes = []
+    for n in hw:
+        i = torch.arange(n, device="cuda", dtype=torch.float32)
+        axes.append(2 * i / max(n - 1, 1) - 1 if align else (2 * i + 1) / n - 1)
+    y, x = torch.meshgrid(*axes, indexing="ij")
+    return torch.stack([x, y], dim=-1)
 
 
 def kp_grad_case(N: int, gen: torch.Generator, h: int = 58, w: int = 58,
-                 K: int = 10):
+                 K: int = 10, **kw):
     """(pred, jmap, temperature, g_value, g_jac) as the heads pass them
-    (slices of one conv output), with random output gradients."""
-    pred, jmap, temperature = kp_case(N, gen, h, w, K=K)
+    (slices of one conv output; ``kw`` as ``kp_case`` takes them), with
+    random output gradients."""
+    pred, jmap, temperature = kp_case(N, gen, h, w, K=K, **kw)
     K = pred.shape[1]
     return (pred, jmap, temperature,
             torch.randn((N, K, 2), generator=gen, device="cuda"),
@@ -629,7 +656,8 @@ def grad_cases(B: int = 6, frames: int = 4, N: int = 96) -> list:
     """(kernel, dtype, args) of the backward kernels at the fine-tune
     step's shapes (B identities, ``frames`` supervised frames, N keypoint
     rows), both gradients and the ones the training path asks for, plus a
-    ragged output over two sources and align_corners=True."""
+    ragged output over two sources and align_corners=True, then K1b's and
+    K3b's edges (``k1b_cases``, ``k3b_cases``)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     n = B * frames
     cases = []
@@ -652,7 +680,50 @@ def grad_cases(B: int = 6, frames: int = 4, N: int = 96) -> list:
                         (PART2_ROWS, (58, 58), 4)):
         cases.append(("kp_expectation_backward", torch.float32,
                       kp_grad_case(rows, gen, *hw, K=K)))
+    return cases + k1b_cases(gen, n) + k3b_cases(gen)
+
+
+def k1b_cases(gen: torch.Generator, n: int) -> list:
+    """K1b's gather at its edges, both dtypes: the near-identity grid of
+    the training path (its pixels' corners in their own tile and the
+    neighbours') with each of the three gradient choices; grids wholly
+    outside the image; sources that are no multiple of the 8x8 tile
+    (29 x 45, a 13 x 17 output, align_corners); grids of one source in
+    many blocks (group 4 and 3)."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for need in ((True, True), (False, True), (True, False)):
+            cases.append(("warp_wide_backward", dtype,
+                          warp_grad_case(n, n, 256, dtype, gen, need=need,
+                                         grid="near_identity")))
+        cases.append(("warp_wide_backward", dtype,
+                      warp_grad_case(2, 4, 256, dtype, gen, grid="outside")))
+        cases.append(("warp_wide_backward", dtype,
+                      warp_grad_case(2, 6, 256, dtype, gen, hw=(13, 17),
+                                     align=True, image_hw=(29, 45),
+                                     grid="near_identity")))
+        cases.append(("warp_wide_backward", dtype,
+                      warp_grad_case(2, 6, 256, dtype, gen, hw=(13, 17),
+                                     image_hw=(29, 45))))
+        cases.append(("warp_wide_backward", dtype,
+                      warp_grad_case(n // 4, n, 256, dtype, gen,
+                                     grid="near_identity")))
     return cases
+
+
+def k3b_cases(gen: torch.Generator) -> list:
+    """K3b's plans at their edges: rows of 57 x 57 (no multiple of 4: a
+    row's four grad_jmap planes start at four phases against 16 bytes, so
+    every row goes one pixel at a time), the planes 4 bytes off 16 (the
+    same), a 128 x 128 row (past the register plan: the shared-memory
+    path), K = 4 and 10, temperature 1."""
+    return [("kp_expectation_backward", torch.float32, args) for args in (
+        kp_grad_case(16, gen, 57, 57),
+        kp_grad_case(16, gen, 57, 57, K=4),
+        kp_grad_case(16, gen, offset=1),
+        kp_grad_case(2, gen, 128, 128),
+        kp_grad_case(2, gen, 128, 128, K=4, offset=1),
+        kp_grad_case(16, gen, temperature=1.0))]
 
 
 def grad_errors(got, want) -> tuple[float, float]:
@@ -2205,16 +2276,39 @@ def timed_steps(maker: str):
         setattr(S, maker, inner)
 
 
+@contextlib.contextmanager
+def capture_k1b(captured: dict):
+    """While in use, the first K1b launch's arguments (grad_out, image,
+    grid, align_corners, need_image, need_grid), cloned into
+    ``captured["args"]``: ``warp_cuda._launch_backward`` is wrapped, as
+    ``capture_warps`` wraps the forward warps."""
+    inner = warp_cuda._launch_backward
+
+    def spy(entry, grad_out, image, grid, *rest):
+        if entry == "eamm_warp_wide_backward" and "args" not in captured:
+            captured["args"] = (grad_out.clone(), image.clone(),
+                                grid.clone(), *rest)
+        return inner(entry, grad_out, image, grid, *rest)
+
+    warp_cuda._launch_backward = spy
+    try:
+        yield
+    finally:
+        warp_cuda._launch_backward = inner
+
+
 def train_entry_point(mode: str, root: str, work: str,
                       device: str = "cuda", steps: int = TRAIN_STEPS,
-                      jaco_net: str = "cnn") -> dict:
+                      jaco_net: str = "cnn",
+                      k1b_args: dict | None = None) -> dict:
     """``eamm-torch-run``'s ``main`` at FULL_CONFIG widths (ATNet's
     ``jaco_net`` decoder) and the YAML's batch: ``steps`` steps with every
     launch count zeroed just before and read just after, each step's wall
     seconds, peak memory; every loss finite, the trained models changed,
     the frozen ones (weights and BatchNorm statistics) bit for bit as
     drawn; a checkpoint, then one more step resumed from it with
-    ``--checkpoint latest``."""
+    ``--checkpoint latest``.  With ``k1b_args``, the run's first K1b
+    launch's arguments go into it (``capture_k1b``)."""
     from eamm_tpu_torch.cli.run import main as run_main
     from eamm_tpu_torch.train.logging import read_scalars
     from eamm_tpu_torch.train.loop import build_models
@@ -2228,8 +2322,10 @@ def train_entry_point(mode: str, root: str, work: str,
     argv = ["--config", path, "--mode", mode, "--log_dir", log,
             *(["--cpu"] if device == "cpu" else [])]
     images = CountedVisualizer()
+    capture = (capture_k1b(k1b_args) if k1b_args is not None
+               else contextlib.nullcontext())
     try:
-        with timed_steps("make_part1_step") as (walls, profiled):
+        with timed_steps("make_part1_step") as (walls, profiled), capture:
             torch.cuda.reset_peak_memory_stats()
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
@@ -2331,6 +2427,16 @@ FAULTS = {"K1b_grad_grid_x1.01": ("eamm_warp_wide_backward", 1.01, False),
           "K1b_grad_grid_x1.1": ("eamm_warp_wide_backward", 1.1, True),
           "K2b_grad_grid_x1.1": ("eamm_warp_narrow_backward", 1.1, True),
           "K3b_grad_jmap_x1.1": ("kp_expectation_backward", 1.1, True)}
+
+
+# each must-refuse fault's reading (its worst leaf's error over the leaf's
+# bound) on the card before the backward kernels' redesign, by comparison
+# line, as PERF.md records them: printed beside each run's own
+EARLIER_FAULT_OVER = {
+    "train_cpu_vs_card": {"K1b_grad_grid_x1.1": 3.08,
+                          "K2b_grad_grid_x1.1": 1.61,
+                          "K3b_grad_jmap_x1.1": 1.40},
+    "gan_train_cpu_vs_card": {"K3b_grad_jmap_x1.1": 124.9}}
 
 
 @contextlib.contextmanager
@@ -2437,9 +2543,12 @@ def profiled_step(step, state, batch, out: dict):
                if e.device_type == DeviceType.CUDA and self_ms(e) > 0
                and not getattr(e, "is_user_annotation", False)]
     device = sum(self_ms(e) for e in kernels)
-    ours = {name: {"ms": sum(self_ms(e) for e in kernels if sym in e.key),
-                   "calls": sum(e.count for e in kernels if sym in e.key)}
-            for name, sym in KERNEL_SYMBOLS.items()}
+    def of(syms):
+        return [e for e in kernels if any(sym in e.key for sym in syms)]
+
+    ours = {name: {"ms": sum(self_ms(e) for e in of(syms)),
+                   "calls": sum(e.count for e in of(syms))}
+            for name, syms in KERNEL_SYMBOLS.items()}
     top = sorted(kernels, key=self_ms, reverse=True)[:12]
     out["summary"] = {
         "wall_s": wall, "device_ms": device,
@@ -2586,7 +2695,9 @@ def held_step(line: str, ref: dict, cpu32, card_side, faults: dict
         with planted_fault(entry, scale):
             reading = compare(card_side())
         del reading["err"]
-        controls[name] = {**reading, "must_refuse": must_refuse}
+        controls[name] = {**reading, "must_refuse": must_refuse,
+                          "earlier_over": EARLIER_FAULT_OVER.get(
+                              line, {}).get(name)}
     worst_leaf = clean["grad_worst_leaf"]
     result = {"loss": clean["loss"], "stats": clean["stats"],
               "grad_worst_leaf": worst_leaf,
@@ -2656,14 +2767,17 @@ def training_phase() -> dict:
 
 def training_runs(device: str) -> dict:
     """Both modes through the entry point on a synthetic tree, then the
-    bfloat16 step."""
+    bfloat16 step; ``k1b_args`` the fine-tune's first K1b arguments."""
+    k1b_args: dict = {}
     with tempfile.TemporaryDirectory() as work:
         root = os.path.join(work, "lrw")
         write_lrw_tree(root)
-        runs = {mode: train_entry_point(mode, root, work, device)
+        runs = {mode: train_entry_point(
+                    mode, root, work, device, k1b_args=k1b_args
+                    if mode == "train_part1_fine_tune" else None)
                 for mode in TRAIN_PARAMS}
         bf16_step(root, work, device)
-    return {"runs": runs}
+    return {"runs": runs, "k1b_args": k1b_args.get("args")}
 
 
 # ------------------------------------- phase 9: part2 and the evaluation modes
@@ -3673,18 +3787,75 @@ def k6_timings(gen: torch.Generator) -> dict:
                        "share": bound[0] / device["ms"]["median"]}}
 
 
-def backward_timings() -> dict:
+def warp_backward_bound(args: tuple, grads: tuple, accumulator=False):
+    """A warp backward's bound: bytes at 3.35 TB/s, each input read once
+    (the image only for the grid's sum) and each gradient written once,
+    against 2 operations per (pixel, corner, channel) for each gradient at
+    67 TFLOP/s; with ``accumulator``, K2b's float32 accumulator counted as
+    zeroed, read and written once per element (the atomics'
+    read-modify-write; for a float32 image the accumulator is the
+    gradient) and a bfloat16 gradient's rounding pass, the traffic that
+    design cannot avoid."""
+    grad_out, image, grid, _, need_image, need_grid = args
+    grad_image, grad_grid = grads
+    n_bytes = nbytes(grad_out, grid, grad_grid)
+    if need_grid:
+        n_bytes += nbytes(image)
+    if need_image:
+        if accumulator:
+            n_bytes += 3 * 4 * image.numel()
+            if grad_image.dtype != torch.float32:
+                n_bytes += 4 * image.numel() + nbytes(grad_image)
+        else:
+            n_bytes += nbytes(grad_image)
+    return bound_ms(n_bytes, grad_out.numel() * 4 * (2 * need_image
+                                                      + 2 * need_grid))
+
+
+def k1b_timings(args: tuple, library, wrapper,
+                captured: tuple | None) -> dict:
+    """K1b beyond its row's random grid, in turns with the library's
+    ``aten.grid_sampler_2d_backward`` on the same inputs: the
+    near-identity grid at the table's shape, the fine-tune step's own
+    arguments (``captured``, from phase 8), and the table's random inputs
+    with the image gradient alone and the grid gradient alone (with both,
+    the row's ``ms``); each {median, min, max} ms with its bound."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    inputs = {"near_identity": warp_grad_case(24, 24, 256, torch.float32,
+                                              gen, grid="near_identity")}
+    if captured is not None:
+        inputs["captured"] = captured
+    inputs["image_only"] = args[:4] + (True, False)
+    inputs["grid_only"] = args[:4] + (False, True)
+    fns = {}
+    for key, a in inputs.items():
+        fns[key] = graphed(lambda a=a: wrapper(*a))
+        if key in ("near_identity", "captured"):
+            fns[f"{key}_library"] = graphed(library(a))
+    times = in_turns(fns)
+    out = {}
+    for key, a in inputs.items():
+        bound, by = warp_backward_bound(a, wrapper(*a))
+        out[key] = {**times[key], "bound_ms": bound, "bound_by": by,
+                    "share": bound / times[key]["median"],
+                    "library_ms": times.get(f"{key}_library"),
+                    "shapes": [list(t.shape) for t in a[:3]],
+                    "dtypes": [str(t.dtype) for t in a[:3]],
+                    "flags": list(a[3:])}
+    return out
+
+
+def backward_timings(k1b_args: tuple | None = None) -> dict:
     """The backward kernels at the fine-tune step's shapes, float32 (B 6,
     4 supervised frames, 96 keypoint rows), with the gradients the
     training path asks for (K1b both, K2b the grid's): device ms by CUDA
     graph replay in turns with the library call of the same gradient
     (``aten.grid_sampler_2d_backward``; K3b has none), the plain version
-    eager, and the bound: bytes at 3.35 TB/s, each input read once and
-    each gradient written once, against operations at 67 TFLOP/s.  The
-    warps' rows also carry ``bound_accumulator``: the image gradient's
-    float32 accumulator counted as zeroed, read and written once per
-    element (the atomics' read-modify-write; for a float32 image the
-    accumulator is the gradient), the traffic this design cannot avoid."""
+    eager, and the bound (``warp_backward_bound``; K2b's row also carries
+    ``bound_accumulator``, its design's floor).  K1b adds ``k1b_timings``
+    (at ``k1b_args``, the fine-tune step's own arguments, when given) and
+    the attribution by the gradients asked for; K3b its ``map_4`` shape
+    and its launch plan."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     out = {}
     for name, Bi, group, C, need in (
@@ -3692,44 +3863,45 @@ def backward_timings() -> dict:
             ("warp_narrow_backward", 24, 11, 3, (False, True))):
         args = warp_grad_case(Bi, Bi * group, C, torch.float32, gen,
                               need=need)
-        grad_out, image, grid = args[:3]
         wrapper, plain = BACKWARD_KERNELS[name][:2]
-        # the library call takes one image per grid: each source repeated
-        # for the grids that read it (made once, outside the timing)
-        nchw = image.permute(0, 3, 1, 2).repeat_interleave(group, dim=0)
-        gout = grad_out.permute(0, 3, 1, 2)
-        library = (lambda: torch.ops.aten.grid_sampler_2d_backward(
-            gout, nchw, grid, 0, 0, False, list(need)))
+
+        def library(a):
+            # one image per grid: each source repeated for the grids that
+            # read it (made once, outside the timing)
+            grad_out, image, grid, align, need_image, need_grid = a
+            nchw = image.permute(0, 3, 1, 2).repeat_interleave(
+                grid.shape[0] // image.shape[0], dim=0)
+            gout = grad_out.to(image.dtype).permute(0, 3, 1, 2)
+            g = grid.to(image.dtype)
+            return lambda: torch.ops.aten.grid_sampler_2d_backward(
+                gout, nchw, g, 0, 0, align, [need_image, need_grid])
+
         times = in_turns({"ms": graphed(lambda: wrapper(*args)),
-                          "library_ms": graphed(library)})
-        grad_image, grad_grid = wrapper(*args)
-        n_bytes = nbytes(grad_out, grid, grad_grid)
-        if need[1]:
-            n_bytes += nbytes(image)             # read for the grid's sum
-        accumulator = n_bytes
-        if need[0]:
-            n_bytes += nbytes(grad_image)
-            # the float32 accumulator zeroed, then read and written once
-            # (the atomics); a float32 image's gradient is the accumulator
-            # itself, a bfloat16 one is a rounding pass that reads it and
-            # writes the gradient
-            accumulator += 3 * 4 * image.numel()
-            if grad_image.dtype != torch.float32:
-                accumulator += 4 * image.numel() + nbytes(grad_image)
-        ops = grad_out.numel() * 4 * (2 * need[0] + 2 * need[1])
-        bound_acc = bound_ms(accumulator, ops)
+                          "library_ms": graphed(library(args))})
+        grads = wrapper(*args)
+        timing = dict(times)
+        if name == "warp_wide_backward":
+            timing.update(k1b_timings(args, library, wrapper, k1b_args))
+            timing["attribution"] = {
+                "image_only_ms": timing["image_only"]["median"],
+                "grid_only_ms": timing["grid_only"]["median"],
+                "both_ms": times["ms"]["median"]}
+        else:
+            bound_acc = warp_backward_bound(args, grads, accumulator=True)
+            timing["bound_accumulator"] = {
+                "bound_ms": bound_acc[0], "bound_by": bound_acc[1],
+                "share": bound_acc[0] / times["ms"]["median"]}
         out[name] = {"ms": times["ms"]["median"],
                      "library_ms": times["library_ms"]["median"],
                      "plain_ms": time_ms(lambda: plain(*args)),
-                     "bound": bound_ms(n_bytes, ops),
-                     "timing": {**times, "bound_accumulator": {
-                         "bound_ms": bound_acc[0], "bound_by": bound_acc[1],
-                         "share": bound_acc[0] / times["ms"]["median"]}}}
+                     "bound": warp_backward_bound(args, grads),
+                     "timing": timing}
     wrapper, plain = BACKWARD_KERNELS["kp_expectation_backward"][:2]
 
     def k3b_bound(args):
         # read pred and jmap, the output gradients; write both gradients;
-        # ~30 operations a pixel (three passes' exp, the 4-term sum twice)
+        # ~30 operations a pixel (the division, exp, the 4-term sum, the
+        # outputs)
         return bound_ms(2 * nbytes(*args[:2]) + nbytes(*args[3:]),
                         30 * args[0].numel())
 
@@ -3739,16 +3911,20 @@ def backward_timings() -> dict:
     times = in_turns({"ms": graphed(lambda: wrapper(*args)),
                       "map_4_ms": graphed(lambda: wrapper(*map4))})
     bound, by = k3b_bound(map4)
+    row_bound = k3b_bound(args)
     out["kp_expectation_backward"] = {
         "ms": times["ms"]["median"], "library_ms": None,
         "plain_ms": time_ms(lambda: plain(*args)),
-        "bound": k3b_bound(args),
-        "timing": {**times, "map_4": {
-            "shape": [list(map4[0].shape), list(map4[1].shape)],
-            "ms": times["map_4_ms"]["median"],
-            "plain_ms": time_ms(lambda: plain(*map4)),
-            "bound_ms": bound, "bound_by": by,
-            "share": bound / times["map_4_ms"]["median"]}}}
+        "bound": row_bound,
+        "timing": {**times, "share": row_bound[0] / times["ms"]["median"],
+                   "plan": dataclasses.asdict(kpx.backward_launch_plan(
+                       args[0])),
+                   "map_4": {
+                       "shape": [list(map4[0].shape), list(map4[1].shape)],
+                       "ms": times["map_4_ms"]["median"],
+                       "plain_ms": time_ms(lambda: plain(*map4)),
+                       "bound_ms": bound, "bound_by": by,
+                       "share": bound / times["map_4_ms"]["median"]}}}
     return out
 
 
@@ -3851,7 +4027,8 @@ def main() -> int:
     part2 = part2_phase()
     gan = gan_phase(pipe)
     mesh = mesh_phase(pipe, training["runs"]["train_part1"])
-    times = {**timings(captured), **backward_timings()}
+    times = {**timings(captured),
+             **backward_timings(training["k1b_args"])}
 
     # whose launches each row counts
     source_of = {name: ("emotional linear_3 frames 10 s", counts["frames"])

@@ -1,11 +1,11 @@
-// Keypoint expectation for NVIDIA Hopper, two kernels.
+// Keypoint expectation for NVIDIA Hopper: forward, backward and fused.
 //
 // Replaces the TPU kernels
 //   kp_expectation       <- eamm_tpu/ops/kp_expectation.py: kp_expectation ->
 //                           _pallas_impl -> _kernel (the forward);
 //   kp_expectation_backward (K3b) <- the same file's custom_vjp backward
 //                           (_bwd, the autodiff of _xla_impl; it has no
-//                           Pallas kernel), section below K3;
+//                           Pallas kernel), section below K5;
 //   kp_expectation_fused <- eamm_tpu/ops/kp_pallas.py: kp_expectation_fused
 //                           -> _kernel (float32 or bfloat16 inputs, and the
 //                           normalized heatmap on request).
@@ -24,7 +24,8 @@
 // padding.  kp_expectation is one block per row: a max pass pulls the row
 // into L1/L2 and the sums pass reads it there.  kp_expectation_fused is
 // designed for the card's memory system (below its section's head): one
-// pass per row with every plane's loads in flight at once.  The TPU
+// pass per row with every plane's loads in flight at once, and K3b takes
+// the same design (its section's head).  The TPU
 // kernel's -1e9 lane and row padding is TPU layout and has no counterpart
 // here.
 #include <cuda_runtime.h>
@@ -67,20 +68,21 @@ __device__ __forceinline__ float block_max(float v, float* scratch) {
   return m;
 }
 
-// The block's sums of s[0..kSums), left in s on every thread; the warps'
-// partial sums are added in warp order, so the result does not depend on
-// scheduling.
-__device__ __forceinline__ void block_sums(float (&s)[kSums],
+// The block's sums of s[0..N), N <= kSums, left in s on every thread; the
+// warps' partial sums are added in warp order, so the result does not
+// depend on scheduling.
+template <int N>
+__device__ __forceinline__ void block_sums(float (&s)[N],
                                            float (*partial)[kSums]) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
 #pragma unroll
-  for (int i = 0; i < kSums; ++i) {
+  for (int i = 0; i < N; ++i) {
     const float v = warp_sum(s[i]);
     if (lane == 0) partial[wid][i] = v;
   }
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < kSums; ++i) {
+  for (int i = 0; i < N; ++i) {
     float t = 0.f;
     for (int j = 0; j < kWarps; ++j) t += partial[j][i];
     s[i] = t;
@@ -133,71 +135,6 @@ __global__ void kp_expectation_kernel(
     accumulate(s, expf(__fdiv_rn(pr[p], temp) - m), p, h, w, jm, jmap_f);
   block_sums(s, partial);
   store_row(s, row, value, jac);
-}
-
-// ---------------------------------------------------------------- K3b
-//
-// The backward of kp_expectation, one block per (b, k) row like the
-// forward.  Given g_value [B,K,2] and g_jac [B,K,2,2] (contiguous):
-//   p         = softmax(pred / T), recomputed from pred (the forward saves
-//               only pred and jmap, as the custom_vjp does)
-//   s         = g_value . (gx, gy) + sum_f g_jac[f] * jmap[f]
-//   grad_pred = p * (s - sum p*s) / T
-//   grad_jmap[f] = p * g_jac[f]
-// with the coordinates generated here, as the forward does.  Three passes
-// over the row (max, the two sums, the outputs): it reads pred three times
-// and jmap twice, from L1/L2 after the first, and writes 5 floats a pixel,
-// so it is bound by its bytes, like the forward.
-__device__ __forceinline__ float coord(int i, int n) {
-  return 2.f * __fdiv_rn((float)i, (float)(n - 1)) - 1.f;
-}
-
-__global__ void kp_expectation_backward_kernel(
-    const float* __restrict__ pred, long long pred_b, long long pred_k,
-    const float* __restrict__ jmap, long long jmap_b, long long jmap_k,
-    long long jmap_f, const float* __restrict__ g_value,
-    const float* __restrict__ g_jac, float* __restrict__ grad_pred,
-    float* __restrict__ grad_jmap, int K, int h, int w, float temp) {
-  __shared__ float scratch[kWarps];
-  __shared__ float partial[kWarps][kSums];
-  const int row = blockIdx.x;
-  const int b = row / K, k = row % K;
-  const int P = h * w;
-  const float* pr = pred + b * pred_b + k * pred_k;
-  const float* jm = jmap + b * jmap_b + k * jmap_k;
-  const float gv0 = g_value[2 * row], gv1 = g_value[2 * row + 1];
-  float gj[4];
-#pragma unroll
-  for (int f = 0; f < 4; ++f) gj[f] = g_jac[4 * row + f];
-  auto s_of = [&](int p) {
-    const int y = p / w, x = p - y * w;
-    float v = gv0 * coord(x, w) + gv1 * coord(y, h);
-#pragma unroll
-    for (int f = 0; f < 4; ++f) v = fmaf(gj[f], jm[f * jmap_f + p], v);
-    return v;
-  };
-
-  float m = -INFINITY;
-  for (int p = threadIdx.x; p < P; p += kThreads) m = fmaxf(m, __fdiv_rn(pr[p], temp));
-  m = block_max(m, scratch);
-
-  float sums[kSums] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // sum e, e*s
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    const float e = expf(__fdiv_rn(pr[p], temp) - m);
-    sums[0] += e;
-    sums[1] = fmaf(e, s_of(p), sums[1]);
-  }
-  block_sums(sums, partial);
-  const float inv = 1.f / sums[0];
-  const float mean_s = sums[1] * inv;
-  float* gp = grad_pred + (long long)row * P;
-  float* gjm = grad_jmap + (long long)row * 4 * P;
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    const float prob = expf(__fdiv_rn(pr[p], temp) - m) * inv;
-    gp[p] = __fdiv_rn(prob * (s_of(p) - mean_s), temp);
-#pragma unroll
-    for (int f = 0; f < 4; ++f) gjm[f * P + p] = prob * gj[f];
-  }
 }
 
 // ---------------------------------------------------------------- K5
@@ -424,6 +361,285 @@ kp_expectation_fused_kernel(
   }
 }
 
+// ---------------------------------------------------------------- K3b
+//
+// The backward of kp_expectation.  Given g_value [B,K,2] and g_jac
+// [B,K,2,2] (contiguous), per (b, k) row:
+//   p         = softmax(pred / T), recomputed from pred (the forward saves
+//               only pred and jmap, as the custom_vjp does)
+//   s         = g_value . (gx, gy) + sum_f g_jac[f] * jmap[f]
+//   grad_pred = p * (s - sum p*s) / T
+//   grad_jmap[f] = p * g_jac[f]
+// with the coordinates generated here, as the forward does.  It reads 5
+// floats a pixel and writes 5, so it is bound by its bytes: 129 MB at
+// [96,10,58,58], 0.0386 ms at 3.35 TB/s.  Its first design, one block a
+// row in three passes (max, the sums, the outputs) that read pred three
+// times and jmap twice by scalar loads, each pass recomputing the logit,
+// exp and a division per pixel, took 0.0978 ms on an H100 (39%).
+//
+// This design is K5's: persistent blocks walk the rows (the launch is
+// ops/kp_expectation.py backward_plan's) and each row is read from device
+// memory in ONE pass, a thread loading groups of 4 pixels from all five
+// planes at once as 16-byte streaming vectors.  What the outputs need of
+// a pixel, its logit and s, stays on the chip: in registers, G groups a
+// thread (G = 1, 2 or 4: rows of up to 4096 pixels at 256 threads), or
+// for a larger row in shared memory (8 bytes a pixel).  Then the row's
+// max (one barrier), one exp a pixel and the two sums (one barrier), and
+// the outputs from registers as 16-byte streaming stores.  The
+// coordinates come from per-block tables, with no division per pixel.  A
+// row whose ten planes (five read, five written) do not start alike
+// against 16 bytes (a row of h*w pixels that is no multiple of 4, or
+// planes off 16 bytes) goes one pixel at a time, pixel (4 g + i) * 256 + t
+// in thread t's slot (g, i), so that a warp's loads are still coalesced;
+// the pixels before the first aligned group and after the last, at most
+// six, go one to a thread.  On an H100 it takes 0.054 ms at [96,10,58,58]
+// (71% of its bound), 0.057 at part2's map_4 [256,4,58,58] (72%).
+
+// Slot (g, i) of thread t holds pixel first + (t + g * kThreads) * kGroup
+// + i while t + g * kThreads < groups in a grouped row, else pixel
+// (g * kGroup + i) * kThreads + t while it is before `after`; thread
+// t < loose holds one more.
+struct RowSlots {
+  int first, groups, after, loose;
+  bool grouped;
+};
+
+__device__ __forceinline__ RowSlots row_slots(const float* pr,
+                                              const float* jm,
+                                              long long jmap_f,
+                                              const float* gp,
+                                              const float* gjm, int P) {
+  RowSlots r;
+  const int head = group_head(pr);
+  r.grouped = head < P && group_head(gp) == head;
+#pragma unroll
+  for (int f = 0; f < 4; ++f)
+    r.grouped = r.grouped && group_head(jm + f * jmap_f) == head &&
+                group_head(gjm + (long long)f * P) == head;
+  r.first = r.grouped ? head : 0;
+  r.groups = (P - r.first) / kGroup;
+  r.after = r.first + r.groups * kGroup;
+  r.loose = r.first + P - r.after;
+  return r;
+}
+
+// G > 0: the row's logits and s in registers, G groups a thread; G == 0:
+// in dynamic shared memory, logits [P] then s [P], before the tables.
+template <int G>
+__global__ void __launch_bounds__(kThreads, 3)
+kp_expectation_backward_kernel(
+    const float* __restrict__ pred, long long pred_b, long long pred_k,
+    const float* __restrict__ jmap, long long jmap_b, long long jmap_k,
+    long long jmap_f, const float* __restrict__ g_value,
+    const float* __restrict__ g_jac, float* __restrict__ grad_pred,
+    float* __restrict__ grad_jmap, int rows, int K, int h, int w,
+    float temp, bool tables) {
+  extern __shared__ float smem[];
+  __shared__ float scratch[kWarps];
+  __shared__ float partial[kWarps][kSums];
+  const int P = h * w;
+  const int t = threadIdx.x;
+  float* const held = smem;
+  float* const gx = tables ? smem + (G == 0 ? 2 * P : 0) : nullptr;
+  float* const gy = tables ? gx + w : nullptr;
+  if (tables) {
+    for (int i = t; i < w; i += kThreads) gx[i] = axis_coord(i, w);
+    for (int i = t; i < h; i += kThreads) gy[i] = axis_coord(i, h);
+    __syncthreads();
+  }
+  // p / w == __umulhi(p, magic) for p * w < 2^32
+  const unsigned magic = 0xffffffffu / (unsigned)w + 1u;
+
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const int b = row / K, k = row - b * K;
+    const float* pr = pred + b * pred_b + k * pred_k;
+    const float* jm = jmap + b * jmap_b + k * jmap_k;
+    float* gp = grad_pred + (long long)row * P;
+    float* gjm = grad_jmap + (long long)row * 4 * P;
+    const float gv0 = g_value[2 * row], gv1 = g_value[2 * row + 1];
+    float gj[4];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) gj[f] = g_jac[4 * row + f];
+    const RowSlots rs = row_slots(pr, jm, jmap_f, gp, gjm, P);
+    auto s_at = [&](int x, int y, const float (&j)[4]) {
+      float v = gv0 * coord(gx, x, w) + gv1 * coord(gy, y, h);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) v = fmaf(gj[f], j[f], v);
+      return v;
+    };
+    // pixel p's logit and s, read from the five planes
+    auto read_one = [&](int p, float& l, float& sv) {
+      const int y = (int)__umulhi((unsigned)p, magic), x = p - y * w;
+      float j[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) j[f] = __ldcs(jm + f * jmap_f + p);
+      l = __fdiv_rn(__ldcs(pr + p), temp);
+      sv = s_at(x, y, j);
+    };
+    // a vector group's four logits and s
+    auto read_group = [&](int p0, float (&l)[kGroup], float (&sv)[kGroup]) {
+      float v[kGroup], j[4][kGroup];
+      unpack(load_group(pr + p0), v);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) unpack(load_group(jm + f * jmap_f + p0), j[f]);
+      int y = (int)__umulhi((unsigned)p0, magic), x = p0 - y * w;
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        l[i] = __fdiv_rn(v[i], temp);
+        const float ji[4] = {j[0][i], j[1][i], j[2][i], j[3][i]};
+        sv[i] = s_at(x, y, ji);
+        if (++x == w) {
+          x = 0;
+          ++y;
+        }
+      }
+    };
+    // a vector group's outputs from its probabilities and s
+    auto write_group = [&](int p0, const float (&prob)[kGroup],
+                           const float (&sv)[kGroup], float mean_s) {
+      float o[kGroup], oj[4][kGroup];
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        o[i] = __fdiv_rn(prob[i] * (sv[i] - mean_s), temp);
+#pragma unroll
+        for (int f = 0; f < 4; ++f) oj[f][i] = prob[i] * gj[f];
+      }
+      store_group(gp + p0, o);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) store_group(gjm + (long long)f * P + p0, oj[f]);
+    };
+    auto write_one = [&](int p, float prob, float sv, float mean_s) {
+      __stcs(gp + p, __fdiv_rn(prob * (sv - mean_s), temp));
+#pragma unroll
+      for (int f = 0; f < 4; ++f) __stcs(gjm + (long long)f * P + p, prob * gj[f]);
+    };
+
+    float m = -FLT_MAX;
+    const int lone = t < rs.loose ? (t < rs.first ? t : rs.after + t - rs.first)
+                                  : -1;
+    float lone_l = -FLT_MAX, lone_s = 0.f;
+    if (lone >= 0) {
+      read_one(lone, lone_l, lone_s);
+      m = lone_l;
+    }
+    float sums[2] = {0.f, 0.f};  // sum e, sum e * s
+    if constexpr (G > 0) {
+      // slot (g, i): of a vector group, or pixel (4 g + i) * kThreads + t
+      auto pixel = [&](int g, int i) {
+        return rs.grouped ? rs.first + (t + g * kThreads) * kGroup + i
+                          : (g * kGroup + i) * kThreads + t;
+      };
+      auto in_slot = [&](int g, int i) {
+        return rs.grouped ? t + g * kThreads < rs.groups
+                          : (g * kGroup + i) * kThreads + t < rs.after;
+      };
+      float l[G][kGroup], sv[G][kGroup];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (rs.grouped) {
+          if (in_slot(g, 0)) read_group(pixel(g, 0), l[g], sv[g]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kGroup; ++i)
+            if (in_slot(g, i)) read_one(pixel(g, i), l[g][i], sv[g][i]);
+        }
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i)
+          if (in_slot(g, i)) m = fmaxf(m, l[g][i]);
+      }
+      m = block_max(m, scratch);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int i = 0; i < kGroup; ++i) {
+          if (in_slot(g, i)) {
+            l[g][i] = expf(l[g][i] - m);
+            sums[0] += l[g][i];
+            sums[1] = fmaf(l[g][i], sv[g][i], sums[1]);
+          }
+        }
+      }
+      if (lone >= 0) {
+        lone_l = expf(lone_l - m);
+        sums[0] += lone_l;
+        sums[1] = fmaf(lone_l, lone_s, sums[1]);
+      }
+      block_sums(sums, partial);
+      const float inv = 1.f / sums[0];
+      const float mean_s = sums[1] * inv;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (rs.grouped) {
+          if (in_slot(g, 0)) {
+            float prob[kGroup];
+#pragma unroll
+            for (int i = 0; i < kGroup; ++i) prob[i] = l[g][i] * inv;
+            write_group(pixel(g, 0), prob, sv[g], mean_s);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < kGroup; ++i)
+            if (in_slot(g, i))
+              write_one(pixel(g, i), l[g][i] * inv, sv[g][i], mean_s);
+        }
+      }
+      if (lone >= 0) write_one(lone, lone_l * inv, lone_s, mean_s);
+    } else {
+      // groups q = t, t + kThreads, ... of vectors, or pixels t,
+      // t + kThreads, ... before rs.after one at a time
+      const int step = rs.grouped ? kGroup : 1;
+      const int n = rs.grouped ? rs.groups : rs.after;
+      float* const hl = held;      // logits, then e
+      float* const hs = held + P;  // s
+      for (int q = t; q < n; q += kThreads) {
+        const int p0 = rs.first + q * step;
+        float l[kGroup], sv[kGroup];
+        if (rs.grouped) read_group(p0, l, sv);
+        else read_one(p0, l[0], sv[0]);
+        for (int i = 0; i < step; ++i) {
+          hl[p0 + i] = l[i];
+          hs[p0 + i] = sv[i];
+          m = fmaxf(m, l[i]);
+        }
+      }
+      m = block_max(m, scratch);
+      for (int q = t; q < n; q += kThreads) {
+        const int p0 = rs.first + q * step;
+        for (int i = 0; i < step; ++i) {
+          const float e = expf(hl[p0 + i] - m);
+          hl[p0 + i] = e;
+          sums[0] += e;
+          sums[1] = fmaf(e, hs[p0 + i], sums[1]);
+        }
+      }
+      if (lone >= 0) {
+        lone_l = expf(lone_l - m);
+        sums[0] += lone_l;
+        sums[1] = fmaf(lone_l, lone_s, sums[1]);
+      }
+      block_sums(sums, partial);
+      const float inv = 1.f / sums[0];
+      const float mean_s = sums[1] * inv;
+      for (int q = t; q < n; q += kThreads) {
+        const int p0 = rs.first + q * step;
+        if (rs.grouped) {
+          float prob[kGroup], sv[kGroup];
+#pragma unroll
+          for (int i = 0; i < kGroup; ++i) {
+            prob[i] = hl[p0 + i] * inv;
+            sv[i] = hs[p0 + i];
+          }
+          write_group(p0, prob, sv, mean_s);
+        } else {
+          write_one(p0, hl[p0] * inv, hs[p0], mean_s);
+        }
+      }
+      if (lone >= 0) write_one(lone, lone_l * inv, lone_s, mean_s);
+      __syncthreads();  // the next row's slots may be another thread's
+    }
+  }
+}
+
 // The arguments of eamm_kp_expectation_fused and
 // eamm_kp_expectation_fused_resident.
 struct FusedArgs {
@@ -489,6 +705,22 @@ int by_dtype(int pdtype, int jdtype, const FusedArgs& a, int* out) {
   return (int)cudaErrorInvalidValue;
 }
 
+// K3b's kernel for G groups a thread (0: shared memory).
+using BackwardKernel = void (*)(const float*, long long, long long,
+                                const float*, long long, long long, long long,
+                                const float*, const float*, float*, float*,
+                                int, int, int, int, float, bool);
+
+BackwardKernel backward_kernel(int groups) {
+  switch (groups) {
+    case 0: return kp_expectation_backward_kernel<0>;
+    case 1: return kp_expectation_backward_kernel<1>;
+    case 2: return kp_expectation_backward_kernel<2>;
+    case 4: return kp_expectation_backward_kernel<4>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 // pred row (b, k) starts at pred + b*pred_b + k*pred_k; jmap row (b, k, f) at
@@ -540,21 +772,52 @@ extern "C" int eamm_kp_expectation_fused_resident(int pdtype, int jdtype,
 
 // K3b: g_value [B,K,2] and g_jac [B,K,2,2] contiguous float32 -> grad_pred
 // [B,K,h,w] and grad_jmap [B,K,4,h,w], contiguous float32; pred and jmap as
-// the forward reads them.
+// the forward reads them.  The launch as ops/kp_expectation.py
+// backward_plan makes it: blocks persistent blocks holding `groups`
+// groups of 4 pixels a thread in registers (1, 2 or 4), or 0 for the
+// shared-memory path, with smem bytes of dynamic shared memory (with
+// groups 0 the row's logits and s, 8 bytes a pixel, then, if tables,
+// gx[w] and gy[h]); eamm_kp_expectation_backward_resident at that plan
+// must have been called first on this device.
 extern "C" int eamm_kp_expectation_backward(
     const void* pred, long long pred_b, long long pred_k, const void* jmap,
     long long jmap_b, long long jmap_k, long long jmap_f, const void* g_value,
     const void* g_jac, void* grad_pred, void* grad_jmap, int B, int K, int h,
-    int w, float temp, void* stream) {
+    int w, float temp, int groups, int smem, int tables, int blocks,
+    void* stream) {
   cudaGetLastError();  // clear any earlier error of this runtime
-  kp_expectation_backward_kernel<<<B * K, kThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  const BackwardKernel kernel = backward_kernel(groups);
+  if (kernel == nullptr || smem < 0 || smem > kFusedSmemBudget || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pred), pred_b, pred_k,
       static_cast<const float*>(jmap), jmap_b, jmap_k, jmap_f,
       static_cast<const float*>(g_value), static_cast<const float*>(g_jac),
-      static_cast<float*>(grad_pred), static_cast<float*>(grad_jmap), K, h, w,
-      temp);
+      static_cast<float*>(grad_pred), static_cast<float*>(grad_jmap), B * K,
+      K, h, w, temp, tables != 0);
   return (int)cudaGetLastError();
+}
+
+// K3b's blocks that the current device holds at once for `groups` with smem
+// bytes of dynamic shared memory each, into *resident; lets the kernel
+// take up to kFusedSmemBudget.  Returns a cudaError_t.
+extern "C" int eamm_kp_expectation_backward_resident(int groups, int smem,
+                                                     int* resident) {
+  const BackwardKernel kernel = backward_kernel(groups);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           kFusedSmemBudget)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return (int)err;
+  *resident = sms * per_sm;
+  return 0;
 }
 
 extern "C" const char* eamm_error_string(int code) {

@@ -19,22 +19,62 @@
 //     unnormalize factor (W/2, H/2; (W-1)/2, (H-1)/2 with align_corners).
 // A corner outside the image contributes to neither, and floor() is flat:
 // what autodiff of the plain version (ops/warp.py grid_sample) gives.
-// Sums are float32; grad_image is accumulated in a float32 buffer (the
-// output itself for a float32 image, else scratch that is then rounded
-// once to the image type); grad_grid is written in the grid's type.
+// Sums are float32, rounded once to the image type for grad_image (K2b
+// accumulates in a float32 buffer: the output itself for a float32 image,
+// else scratch rounded once); grad_grid is written in the grid's type.
 //
-// What bounds them: grad_image is a scatter, so every (pixel, corner,
-// channel) is a float32 read-modify-write in L2 (atomicAdd); at K1b's
-// training shape that is 4 x 256 per pixel.  This first version is the
-// simple one: K1b keeps the forward's block per 8x8 output tile, with the
-// corner offsets, weights and their x and y derivatives computed once per
-// pixel in shared memory, and streams (pixel, 16-byte channel vector)
-// pairs with one global atomic per corner and channel; a pixel's grid
-// gradient is reduced over its channel vectors in shared memory.  K2b
-// (C <= 8, small sources) accumulates grad_image for its source in shared
-// memory first, so the global atomics are one per source value per block,
-// then adds the block's sum to device memory; a thread owns a pixel and
-// its C channels, so its grid gradient needs no reduction.
+// What bounds them: the bytes.  Each input read once and each gradient
+// written once is 303.6 MB for K1b at the fine-tune step's shape (f32
+// [24,64,64,256] by [24,64,64,2]), 0.0906 ms at 3.35 TB/s; its arithmetic
+// is ~8 operations per (pixel, corner, channel), far below the card's rate.
+//
+// K1b, redesigned: the image gradient is GATHERED, not scattered.  The
+// first design (one block per 8x8 output tile, one float32 global atomic
+// per pixel, corner and channel into a zeroed float32 accumulator, the
+// grid gradient reduced by shared-memory atomics on which all 32 lanes of
+// a warp collided) took 0.5799 ms on an H100 (700 W), and split by what it
+// was asked for: image only 0.4889, grid only 0.2494 with a random grid;
+// 0.6224 / 0.2626 / 0.7301 with a near-identity grid, the training
+// path's, whose neighbouring pixels' atomics hit the same addresses.  So
+// the scatter dominated.  Hopper's vector reductions (atomicAdd on float4,
+// REDG.E.ADD.F32x4) would cut the atomics 4x but keep the accumulator's
+// memset and its read-modify-write in L2: 500 MB of DRAM at the least.
+// The gather needs neither:
+//   1. bins: each output pixel goes to the bin of the 8x8 source tile that
+//      holds its base corner (floor x, floor y), with one more row and
+//      column of bins for a base corner at -1; a counting sort (count with
+//      an integer atomic per pixel, an exclusive scan, place) lists each
+//      bin's pixels.  Grids of one source share its bins.
+//   2. gather: one block per (source tile, 128-channel slice).  A pixel
+//      with a corner in the tile has its base corner in the tile or in
+//      the tiles to its left, above or above-left, so the block reads
+//      those four bins, staged 256 pixels at a time in shared memory
+//      (corner weights computed once).  Warp r owns row r of the tile:
+//      it takes the staged pixels with a corner on that row (a ballot),
+//      four at a time (their grad_out loads in flight together), a lane
+//      per 4 channels; it adds weight x grad_out into its row's float32
+//      sums in shared memory (no other warp writes them: no atomics) and
+//      reduces the four pixels' corner dots dot(grad_out, image) over the
+//      lanes together (eight sums in nine shuffles) into a [slice, pixel,
+//      corner] buffer.  The block writes its tile's gradient once, in the
+//      image type: no accumulator, no memset, no rounding pass.
+//   3. grid gradient: a thread per output pixel adds its valid corners'
+//      dots times the weights' derivatives.
+// grad_out is read once plus once more for a pixel whose corners
+// straddle a tile edge (~1/4 of them, from L2 when the neighbour ran just
+// before), the image tile once, grad_image written once.  grad_grid is
+// deterministic; grad_image's sums follow each bin's order, which the
+// counting atomics leave to the scheduler, so its last bit may differ
+// between runs.  A grid that sends most pixels to one tile serialises on
+// that tile's block; the training path's grids spread.  On an H100 it
+// takes 0.17 ms at the shape above (53% of its bound, 0.19 at the
+// training path's grids); a warp waits on one batch of four loads at a
+// time, and batches of eight or unrolled tile loads were slower.
+//
+// K2b (C <= 8, small sources) accumulates grad_image for its source in
+// shared memory first, so the global atomics are one per source value per
+// block, then adds the block's sum to device memory; a thread owns a pixel
+// and its C channels, so its grid gradient needs no reduction.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <limits.h>
@@ -42,9 +82,12 @@
 
 namespace {
 
-constexpr int kWideTile = 8;            // 8x8 output pixels per block
-constexpr int kWidePix = kWideTile * kWideTile;
-constexpr int kWideThreads = 256;
+constexpr int kTile = 8;                // K1b's source tiles, a warp a row
+constexpr int kGatherThreads = 32 * kTile;
+constexpr int kSlice = 128;             // channels a block: 32 lanes x 4
+constexpr int kChunk = kGatherThreads;  // bin entries staged at once
+constexpr int kBinThreads = 256;
+constexpr int kScanThreads = 1024;
 constexpr int kNarrowThreads = 256;
 constexpr int kNarrowBlocks = 528;      // 4 blocks on each of 132 SMs
 constexpr int kMaxSmem = 232448;        // a block's opt-in maximum on sm_90
@@ -92,113 +135,336 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16_rn(v);
 }
 
-// VEC values of 16 bytes as floats.
-__device__ __forceinline__ void unpack(const uint4& raw, float v[8],
-                                       __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void unpack(const uint4& raw, float v[4], float) {
-  const float4 f = *reinterpret_cast<const float4*>(&raw);
-  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-}
-
 // The unnormalize factor: d(pixel coordinate) / d(grid coordinate).
 __device__ __forceinline__ float scale_of(int size, int align) {
   return align ? 0.5f * (float)(size - 1) : 0.5f * (float)size;
 }
 
-// K1b: one block per 8x8 tile of one grid's output, all C channels;
-// C % 8 == 0.  grid: x over tiles, y over B.
+// ---------------------------------------------------------------- K1b
+
+// Four channels of T as floats, and back.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned*>(&lo);
+  raw.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// Sums over a warp's lanes of eight values at once: each step halves the
+// values a lane keeps, trading the other half with its partner, so lane l
+// ends with the sum of v[(l >> 2) & 7].
+__device__ __forceinline__ float reduce8(const float (&v)[8], int lane) {
+  float a[4], b[2];
+  const bool hi16 = lane & 16, hi8 = lane & 8, hi4 = lane & 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    a[j] = (hi16 ? v[j + 4] : v[j]) +
+           __shfl_xor_sync(0xffffffffu, hi16 ? v[j] : v[j + 4], 16);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    b[j] = (hi8 ? a[j + 2] : a[j]) +
+           __shfl_xor_sync(0xffffffffu, hi8 ? a[j] : a[j + 2], 8);
+  float c = (hi4 ? b[1] : b[0]) +
+            __shfl_xor_sync(0xffffffffu, hi4 ? b[0] : b[1], 4);
+  c += __shfl_xor_sync(0xffffffffu, c, 2);
+  c += __shfl_xor_sync(0xffffffffu, c, 1);
+  return c;
+}
+
+// A grid point's base corner (x0, y0) = floor of its pixel coordinates and
+// the fractions past it; `in` when some corner lies inside the image
+// (x0 in [-1, W-1] and y0 in [-1, H-1]), as corners() finds them.
+struct Base {
+  int x0, y0;
+  float fx, fy;
+  bool in;
+};
+
+template <typename G>
+__device__ __forceinline__ Base base_of(const G* g2, int H, int W, int align) {
+  const float x = unnormalize(to_float(g2[0]), W, align);
+  const float y = unnormalize(to_float(g2[1]), H, align);
+  const float x0 = floorf(x), y0 = floorf(y);
+  Base b;
+  b.in = x0 >= -1.f && x0 <= (float)(W - 1) && y0 >= -1.f &&
+         y0 <= (float)(H - 1);
+  b.x0 = b.in ? (int)x0 : 0;
+  b.y0 = b.in ? (int)y0 : 0;
+  b.fx = x - x0;
+  b.fy = y - y0;
+  return b;
+}
+
+// The bin of a base corner within its source: tiles of kTile, shifted by
+// one so that a base corner at -1 has a bin of its own.
+__device__ __forceinline__ int bin_of(const Base& b, int bins_x) {
+  return (b.y0 + kTile) / kTile * bins_x + (b.x0 + kTile) / kTile;
+}
+
+// Bins, step 1: each output pixel o's bin (source-major) and its rank
+// among the bin's pixels, or -1 where no corner lies inside the image.
+template <typename G>
+__global__ void __launch_bounds__(kBinThreads)
+bin_count_kernel(const G* __restrict__ grid, int* __restrict__ counts,
+                 int2* __restrict__ slot, long long BP, int P, int group,
+                 int H, int W, int align, int bins_x, int bins) {
+  for (long long o = (long long)blockIdx.x * kBinThreads + threadIdx.x;
+       o < BP; o += (long long)gridDim.x * kBinThreads) {
+    const Base b = base_of(grid + 2 * o, H, W, align);
+    int key = -1, rank = 0;
+    if (b.in) {
+      key = (int)(o / P / group) * bins + bin_of(b, bins_x);
+      rank = atomicAdd(counts + key, 1);
+    }
+    slot[o] = make_int2(key, rank);
+  }
+}
+
+// Bins, step 2, one block: offsets[i] = counts[0] + ... + counts[i - 1]
+// for i <= n.
+__global__ void __launch_bounds__(kScanThreads)
+bin_scan_kernel(const int* __restrict__ counts, int* __restrict__ offsets,
+                int n) {
+  __shared__ int warp_total[kScanThreads / 32];
+  __shared__ int carry;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (threadIdx.x == 0) carry = 0;
+  for (int first = 0; first < n; first += kScanThreads) {
+    const int i = first + threadIdx.x;
+    const int v = i < n ? counts[i] : 0;
+    int x = v;  // the warp's inclusive scan
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, d);
+      if (lane >= d) x += y;
+    }
+    if (lane == 31) warp_total[wid] = x;
+    __syncthreads();
+    if (wid == 0) {
+      int t = warp_total[lane];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, t, d);
+        if (lane >= d) t += y;
+      }
+      warp_total[lane] = t;
+    }
+    __syncthreads();
+    const int before = carry + (wid > 0 ? warp_total[wid - 1] : 0) + x - v;
+    if (i < n) offsets[i] = before;
+    __syncthreads();  // every thread has read carry
+    if (threadIdx.x == kScanThreads - 1) carry = before + v;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) offsets[n] = carry;
+}
+
+// Bins, step 3: list[offsets[bin] + rank] = o.
+__global__ void __launch_bounds__(kBinThreads)
+bin_place_kernel(const int2* __restrict__ slot,
+                 const int* __restrict__ offsets, int* __restrict__ list,
+                 long long BP) {
+  for (long long o = (long long)blockIdx.x * kBinThreads + threadIdx.x;
+       o < BP; o += (long long)gridDim.x * kBinThreads) {
+    const int2 s = slot[o];
+    if (s.x >= 0) list[offsets[s.x] + s.y] = (int)o;
+  }
+}
+
+// A staged output pixel: its index, its base corner less the tile's
+// origin and its four corner weights in corners()' order; o < 0 when it
+// has no corner in the tile.
+struct Staged {
+  int o, rx, ry;
+  float w[4];
+};
+
+// K1b's gather: block (tile, source, slice); C % 8 == 0.  Dynamic shared
+// memory: with gsrc, the tile's float32 sums [kTile * kTile][kSlice]; with
+// dots, then the tile's image slice as floats, the same size.
 template <typename T, typename G>
-__global__ void __launch_bounds__(kWideThreads)
-warp_wide_backward_kernel(const T* __restrict__ src, const G* __restrict__ grid,
-                          const T* __restrict__ gout, float* __restrict__ gsrc,
-                          G* __restrict__ ggrid, int Ho, int Wo, int group,
-                          int H, int W, int C, int align) {
-  constexpr int VEC = 16 / sizeof(T);
-  __shared__ int s_src[kWidePix][4];    // corner offsets idx*C, or -1
-  __shared__ float s_wgt[kWidePix][4];
-  __shared__ float s_dx[kWidePix][4];
-  __shared__ float s_dy[kWidePix][4];
-  __shared__ int s_out[kWidePix];       // pixel offset p*C in the grid
-  __shared__ float s_gx[kWidePix];      // the pixel's d(loss)/dx, dy
-  __shared__ float s_gy[kWidePix];
-  const int tiles_x = (Wo + kWideTile - 1) / kWideTile;
+__global__ void __launch_bounds__(kGatherThreads)
+warp_wide_backward_kernel(const T* __restrict__ src,
+                          const G* __restrict__ grid,
+                          const T* __restrict__ gout, T* __restrict__ gsrc,
+                          float* __restrict__ dots,
+                          const int* __restrict__ offsets,
+                          const int* __restrict__ list, long long BP, int H,
+                          int W, int C, int align, int tiles_x, int bins_x,
+                          int bins) {
+  extern __shared__ float4 smem4[];
+  __shared__ Staged staged[kChunk];
+  constexpr int kRow = kTile * 32;  // float4s of one tile row's sums
+  float4* const acc = gsrc != nullptr ? smem4 : nullptr;
+  float4* const img =
+      dots != nullptr ? smem4 + (gsrc != nullptr ? kTile * kRow : 0) : nullptr;
+  const int lane = threadIdx.x & 31, r = threadIdx.x >> 5;
   const int ty = blockIdx.x / tiles_x, tx = blockIdx.x - ty * tiles_x;
-  const int y0 = ty * kWideTile, x0 = tx * kWideTile;
-  const int tw = min(kWideTile, Wo - x0), th = min(kWideTile, Ho - y0);
-  const int n_px = tw * th;
-  const int b = blockIdx.y;
-  const size_t P = (size_t)Ho * Wo;
-  const int t = threadIdx.x;
-  if (t < n_px) {
-    const int ly = t / tw, lx = t - ly * tw;
-    const int p = (y0 + ly) * Wo + x0 + lx;
-    const G* g = grid + ((size_t)b * P + p) * 2;
+  const int oy = ty * kTile, ox = tx * kTile;
+  const int th = min(kTile, H - oy), tw = min(kTile, W - ox);
+  const int s = blockIdx.y, slice = blockIdx.z;
+  const int ch = slice * kSlice + lane * 4;
+  const bool on = ch < C;
+  // row r's first pixel in the source, as an element offset
+  const size_t row0 = (((size_t)s * H + oy + r) * W + ox) * C + ch;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (r < th) {
+    for (int c = 0; c < tw; ++c) {
+      if (acc != nullptr) acc[r * kRow + c * 32 + lane] = zero;
+      if (img != nullptr)
+        img[r * kRow + c * 32 + lane] =
+            on ? load4(src + row0 + (size_t)c * C) : zero;
+    }
+  }
+  // the bins of the tile and of the tiles left, above and above-left
+  int lo[4], n[4], total = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int key =
+        s * bins + (ty + 1 - (j >> 1)) * bins_x + (tx + 1 - (j & 1));
+    lo[j] = offsets[key];
+    n[j] = offsets[key + 1] - lo[j];
+    total += n[j];
+  }
+  for (int first = 0; first < total; first += kChunk) {
+    __syncthreads();  // the previous chunk is consumed
+    {
+      Staged st;
+      st.o = -1;
+      int i = first + threadIdx.x;
+      if (i < total) {
+        int j = 0;
+        while (i >= n[j]) i -= n[j++];
+        const int o = list[lo[j] + i];
+        const Base b = base_of(grid + 2 * (size_t)o, H, W, align);
+        const int rx = b.x0 - ox, ry = b.y0 - oy;
+        // a column of x0, x0 + 1 and a row of y0, y0 + 1 in the tile
+        if (rx >= -1 && rx < tw && ry >= -1 && ry < th) {
+          const float wx0 = 1.f - b.fx, wy0 = 1.f - b.fy;
+          st.o = o;
+          st.rx = rx;
+          st.ry = ry;
+          st.w[0] = wx0 * wy0;
+          st.w[1] = b.fx * wy0;
+          st.w[2] = wx0 * b.fy;
+          st.w[3] = b.fx * b.fy;
+        }
+      }
+      staged[threadIdx.x] = st;
+    }
+    __syncthreads();
+    const int count = min(kChunk, total - first);
+    if (r >= th) continue;
+    for (int k0 = 0; k0 < count; k0 += 32) {
+      const int k = k0 + lane;
+      const bool mine = k < count && staged[k].o >= 0 &&
+                        (staged[k].ry == r || staged[k].ry == r - 1);
+      unsigned mask = __ballot_sync(0xffffffffu, mine);
+      while (mask != 0u) {
+        int id[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          id[u] = mask != 0u ? k0 + __ffs(mask) - 1 : -1;
+          mask &= mask - 1u;
+        }
+        float4 g[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          g[u] = id[u] >= 0 && on
+                     ? load4(gout + (size_t)staged[id[u]].o * C + ch)
+                     : zero;
+        float d[8];  // lane partials of dot(grad_out, image), corner (u, dx)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          d[2 * u] = d[2 * u + 1] = 0.f;
+          if (id[u] < 0) continue;
+          const Staged& st = staged[id[u]];
+          const int row = st.ry == r ? 0 : 2;  // corners 0, 1 on y0; 2, 3 on y0 + 1
+#pragma unroll
+          for (int dx = 0; dx < 2; ++dx) {
+            const int c = st.rx + dx;
+            if (c < 0 || c >= tw) continue;
+            const int at = r * kRow + c * 32 + lane;
+            if (acc != nullptr) {
+              const float w = st.w[row + dx];
+              float4 a = acc[at];
+              a.x = fmaf(w, g[u].x, a.x);
+              a.y = fmaf(w, g[u].y, a.y);
+              a.z = fmaf(w, g[u].z, a.z);
+              a.w = fmaf(w, g[u].w, a.w);
+              acc[at] = a;
+            }
+            if (img != nullptr) {
+              const float4 v = img[at];
+              float e = g[u].x * v.x;
+              e = fmaf(g[u].y, v.y, e);
+              e = fmaf(g[u].z, v.z, e);
+              d[2 * u + dx] = fmaf(g[u].w, v.w, e);
+            }
+          }
+        }
+        if (img == nullptr) continue;
+        // the eight sums over the lanes at once: lane l ends with the sum
+        // of d[(l >> 2) & 7], in 4 + 2 + 1 + 2 shuffles
+        const float sum = reduce8(d, lane);
+        const int u = lane >> 3, dx = (lane >> 2) & 1;
+        const int mine_id = u == 0 ? id[0] : u == 1 ? id[1] : u == 2 ? id[2] : id[3];
+        if ((lane & 3) == 0 && mine_id >= 0) {
+          const Staged& st = staged[mine_id];
+          const int c = st.rx + dx;
+          if (c >= 0 && c < tw)
+            dots[((size_t)slice * BP + st.o) * 4 + (st.ry == r ? 0 : 2) +
+                 dx] = sum;
+        }
+      }
+    }
+  }
+  // warp r alone wrote row r's sums
+  if (acc == nullptr || r >= th || !on) return;
+  for (int c = 0; c < tw; ++c)
+    store4(gsrc + row0 + (size_t)c * C, acc[r * kRow + c * 32 + lane]);
+}
+
+// K1b's grid gradient: a thread per output pixel, its valid corners' dots
+// (summed over the slices) times the weights' derivatives.
+template <typename G>
+__global__ void __launch_bounds__(kBinThreads)
+grid_grad_kernel(const G* __restrict__ grid, const float* __restrict__ dots,
+                 G* __restrict__ ggrid, long long BP, int slices, int H,
+                 int W, int align) {
+  const float fx = scale_of(W, align), fy = scale_of(H, align);
+  for (long long o = (long long)blockIdx.x * kBinThreads + threadIdx.x;
+       o < BP; o += (long long)gridDim.x * kBinThreads) {
+    const G* g2 = grid + 2 * o;
     int idx[4];
     float wgt[4], dwx[4], dwy[4];
-    corners(to_float(g[0]), to_float(g[1]), H, W, align, idx, wgt, dwx, dwy);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      s_src[t][c] = idx[c] < 0 ? -1 : idx[c] * C;
-      s_wgt[t][c] = wgt[c];
-      s_dx[t][c] = dwx[c];
-      s_dy[t][c] = dwy[c];
-    }
-    s_out[t] = p * C;
-    s_gx[t] = 0.f;
-    s_gy[t] = 0.f;
-  }
-  __syncthreads();
-  const size_t src_off = (size_t)(b / group) * H * W * C;
-  const T* s = src + src_off;
-  float* gs = gsrc ? gsrc + src_off : nullptr;
-  const T* go = gout + (size_t)b * P * C;
-  const int vecs = C / VEC;
-  const int pairs = n_px * vecs;
-#pragma unroll 1
-  for (int k = t; k < pairs; k += kWideThreads) {
-    const int q = k / vecs;
-    const int c0 = (k - q * vecs) * VEC;
-    float g[VEC];
-    unpack(__ldg(reinterpret_cast<const uint4*>(go + s_out[q] + c0)), g, T());
+    corners(to_float(g2[0]), to_float(g2[1]), H, W, align, idx, wgt, dwx, dwy);
     float ax = 0.f, ay = 0.f;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const int off = s_src[q][c];
-      if (off < 0) continue;
-      if (gs) {
-        const float w = s_wgt[q][c];
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) atomicAdd(gs + off + c0 + j, w * g[j]);
-      }
-      if (ggrid) {
-        float val[VEC];
-        unpack(__ldg(reinterpret_cast<const uint4*>(s + off + c0)), val, T());
-        float dot = 0.f;
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) dot = fmaf(g[j], val[j], dot);
-        ax = fmaf(dot, s_dx[q][c], ax);
-        ay = fmaf(dot, s_dy[q][c], ay);
-      }
+      if (idx[c] < 0) continue;
+      float d = 0.f;
+      for (int sl = 0; sl < slices; ++sl)
+        d += dots[((size_t)sl * BP + o) * 4 + c];
+      ax = fmaf(d, dwx[c], ax);
+      ay = fmaf(d, dwy[c], ay);
     }
-    if (ggrid) {
-      atomicAdd(&s_gx[q], ax);
-      atomicAdd(&s_gy[q], ay);
-    }
-  }
-  if (!ggrid) return;
-  __syncthreads();
-  if (t < n_px) {
-    G* o = ggrid + (size_t)b * P * 2 + s_out[t] / C * 2;
-    o[0] = from_float<G>(s_gx[t] * scale_of(W, align));
-    o[1] = from_float<G>(s_gy[t] * scale_of(H, align));
+    ggrid[2 * o] = from_float<G>(ax * fx);
+    ggrid[2 * o + 1] = from_float<G>(ay * fy);
   }
 }
 
@@ -271,6 +537,7 @@ __global__ void round_kernel(const float* __restrict__ in,
     out[i] = __float2bfloat16_rn(in[i]);
 }
 
+// K2b's launch.
 struct Args {
   const void* src;
   const void* grid;
@@ -282,15 +549,104 @@ struct Args {
   cudaStream_t stream;
 };
 
+// K1b's launch: gsrc is grad_image in the image type (no accumulator);
+// work holds the bins and the dots, carved as wide_layout says.
+struct WideArgs {
+  const void* src;
+  const void* grid;
+  const void* gout;
+  void* gsrc;
+  void* ggrid;
+  int* work;
+  long long work_ints;
+  int B, Ho, Wo, group, H, W, C, align;
+  cudaStream_t stream;
+};
+
+// The workspace in ints, as ops/warp_cuda.py wide_backward_plan computes
+// it: bin counts, bin offsets (one more), padding to 8 bytes, each output
+// pixel's (bin, rank), the bins' list of pixels, then with the grid
+// gradient the dots [slices, B*Ho*Wo, 4] as floats.
+struct WideLayout {
+  int tiles_x, tiles_y, bins_x, bins, n_bins, slices;
+  long long BP, offsets, slot, list, dots, ints;
+};
+
+WideLayout wide_layout(const WideArgs& a) {
+  WideLayout l;
+  l.tiles_x = (a.W + kTile - 1) / kTile;
+  l.tiles_y = (a.H + kTile - 1) / kTile;
+  l.bins_x = l.tiles_x + 1;
+  l.bins = (l.tiles_y + 1) * l.bins_x;
+  l.n_bins = (a.B / a.group) * l.bins;
+  l.slices = (a.C + kSlice - 1) / kSlice;
+  l.BP = (long long)a.B * a.Ho * a.Wo;
+  l.offsets = l.n_bins;
+  const long long head = 2LL * l.n_bins + 1;
+  l.slot = head + (head & 1);
+  l.list = l.slot + 2 * l.BP;
+  l.dots = l.list + l.BP;
+  l.ints = l.dots + (a.ggrid != nullptr ? 4LL * l.slices * l.BP : 0);
+  return l;
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory, once per device, so
+// that a launch (or a CUDA graph's capture of it) makes no other runtime
+// call; `attributed` is the kernel's own record of the device.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, int& attributed) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || attributed == device) return err;
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)) !=
+      cudaSuccess)
+    return err;
+  attributed = device;
+  return cudaSuccess;
+}
+
+// Bins, gather, then the grid gradient.
 template <typename T, typename G>
-cudaError_t launch_wide(const Args& a) {
-  const int tiles = ((a.Ho + kWideTile - 1) / kWideTile) *
-                    ((a.Wo + kWideTile - 1) / kWideTile);
-  warp_wide_backward_kernel<T, G>
-      <<<dim3(tiles, a.B), kWideThreads, 0, a.stream>>>(
-          static_cast<const T*>(a.src), static_cast<const G*>(a.grid),
-          static_cast<const T*>(a.gout), a.gsrc, static_cast<G*>(a.ggrid),
-          a.Ho, a.Wo, a.group, a.H, a.W, a.C, a.align);
+cudaError_t launch_wide(const WideArgs& a) {
+  const WideLayout l = wide_layout(a);
+  if (a.work_ints < l.ints) return cudaErrorInvalidValue;
+  int* counts = a.work;
+  int* offsets = a.work + l.offsets;
+  int2* slot = reinterpret_cast<int2*>(a.work + l.slot);
+  int* list = a.work + l.list;
+  float* dots =
+      a.ggrid != nullptr ? reinterpret_cast<float*>(a.work + l.dots) : nullptr;
+  const G* grid = static_cast<const G*>(a.grid);
+  const int P = a.Ho * a.Wo;
+  const long long need = (l.BP + kBinThreads - 1) / kBinThreads;
+  const int bin_blocks = (int)(need < 4096 ? need : 4096);
+  cudaError_t err =
+      cudaMemsetAsync(counts, 0, (size_t)l.n_bins * sizeof(int), a.stream);
+  if (err != cudaSuccess) return err;
+  bin_count_kernel<G><<<bin_blocks, kBinThreads, 0, a.stream>>>(
+      grid, counts, slot, l.BP, P, a.group, a.H, a.W, a.align, l.bins_x,
+      l.bins);
+  bin_scan_kernel<<<1, kScanThreads, 0, a.stream>>>(counts, offsets,
+                                                    l.n_bins);
+  bin_place_kernel<<<bin_blocks, kBinThreads, 0, a.stream>>>(slot, offsets,
+                                                              list, l.BP);
+  auto gather = warp_wide_backward_kernel<T, G>;
+  constexpr int kPlane = kTile * kTile * kSlice * (int)sizeof(float);
+  static int attributed = -1;
+  if ((err = allow_smem(gather, 2 * kPlane, attributed)) != cudaSuccess)
+    return err;
+  const int smem = (a.gsrc != nullptr ? kPlane : 0) +
+                   (a.ggrid != nullptr ? kPlane : 0);
+  gather<<<dim3(l.tiles_x * l.tiles_y, a.B / a.group, l.slices),
+           kGatherThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.src), grid, static_cast<const T*>(a.gout),
+      static_cast<T*>(a.gsrc), dots, offsets, list, l.BP, a.H, a.W, a.C,
+      a.align, l.tiles_x, l.bins_x, l.bins);
+  if (a.ggrid != nullptr)
+    grid_grad_kernel<G><<<bin_blocks, kBinThreads, 0, a.stream>>>(
+        grid, dots, static_cast<G*>(a.ggrid), l.BP, l.slices, a.H, a.W,
+        a.align);
   return cudaGetLastError();
 }
 
@@ -299,19 +655,9 @@ cudaError_t launch_narrow(const Args& a) {
   auto kernel = warp_narrow_backward_kernel<T, G>;
   const int smem = a.gsrc ? a.H * a.W * a.C * (int)sizeof(float) : 0;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  // let the kernel take the opt-in maximum once per device, so that a
-  // launch (or a CUDA graph's capture of it) makes no other runtime call
   static int attributed = -1;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  const cudaError_t err = allow_smem(kernel, kMaxSmem, attributed);
   if (err != cudaSuccess) return err;
-  if (attributed != device) {
-    if ((err = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             kMaxSmem)) != cudaSuccess)
-      return err;
-    attributed = device;
-  }
   const int n_px = a.group * a.Ho * a.Wo;
   const int Bi = a.B / a.group;
   const int most = (n_px + kNarrowThreads - 1) / kNarrowThreads;
@@ -323,16 +669,10 @@ cudaError_t launch_narrow(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, typename G>
-struct Wide { static cudaError_t run(const Args& a) { return launch_wide<T, G>(a); } };
-template <typename T, typename G>
-struct Narrow { static cudaError_t run(const Args& a) { return launch_narrow<T, G>(a); } };
-
-// Zero the accumulator, run the kernel, round the accumulator to bfloat16
-// where the image is bfloat16.  dtype (image, grad_out, grad_image) and
-// gdtype (grid, grad_grid): 0 float32, 1 bfloat16.
-template <template <typename, typename> class Launch>
-int dispatch(int dtype, int gdtype, const Args& a) {
+// K2b: zero the accumulator, run the kernel, round the accumulator to
+// bfloat16 where the image is bfloat16.  dtype (image, grad_out,
+// grad_image) and gdtype (grid, grad_grid): 0 float32, 1 bfloat16.
+int dispatch_narrow(int dtype, int gdtype, const Args& a) {
   if ((dtype != 0 && dtype != 1) || (gdtype != 0 && gdtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaGetLastError();  // clear any earlier error of this runtime
@@ -343,11 +683,11 @@ int dispatch(int dtype, int gdtype, const Args& a) {
           cudaSuccess)
     return (int)err;
   if (dtype == 0)
-    err = gdtype == 0 ? Launch<float, float>::run(a)
-                      : Launch<float, __nv_bfloat16>::run(a);
+    err = gdtype == 0 ? launch_narrow<float, float>(a)
+                      : launch_narrow<float, __nv_bfloat16>(a);
   else
-    err = gdtype == 0 ? Launch<__nv_bfloat16, float>::run(a)
-                      : Launch<__nv_bfloat16, __nv_bfloat16>::run(a);
+    err = gdtype == 0 ? launch_narrow<__nv_bfloat16, float>(a)
+                      : launch_narrow<__nv_bfloat16, __nv_bfloat16>(a);
   if (err != cudaSuccess || !a.gsrc || dtype == 0) return (int)err;
   const long long need = (n_src + 255) / 256;
   const long long blocks = need < 4096 ? need : 4096;
@@ -365,22 +705,35 @@ bool fits(int B, int Ho, int Wo, int group, int H, int W, int C) {
 
 }  // namespace
 
-// grad_out [B,Ho,Wo,C] of warp_wide -> grad_image (when gsrc is given:
-// its float32 accumulator, [B/group,H,W,C], and gsrc_out, the output in
-// the image type, the same pointer for float32) and grad_grid (when ggrid
-// is given).  C % 8 == 0.  Returns the launches' cudaError_t.
+// grad_out [B,Ho,Wo,C] of warp_wide -> grad_image [B/group,H,W,C] in the
+// image type (when gsrc is given) and grad_grid (when ggrid is given), by
+// K1b's gather; work: work_ints ints of scratch (ops/warp_cuda.py
+// wide_backward_plan).  C % 8 == 0.  dtype (image, grad_out, grad_image)
+// and gdtype (grid, grad_grid): 0 float32, 1 bfloat16.  Returns the
+// launches' cudaError_t.
 extern "C" int eamm_warp_wide_backward(const void* src, const void* grid,
                                        const void* gout, void* gsrc,
-                                       void* gsrc_out, void* ggrid, int dtype,
+                                       void* ggrid, void* work,
+                                       long long work_ints, int dtype,
                                        int gdtype, int B, int Ho, int Wo,
                                        int group, int H, int W, int C,
                                        int align, void* stream) {
-  if (C % 8 != 0 || !fits(B, Ho, Wo, group, H, W, C) || (!gsrc && !ggrid))
+  if (C % 8 != 0 || !fits(B, Ho, Wo, group, H, W, C) || (!gsrc && !ggrid) ||
+      (long long)B * Ho * Wo > INT_MAX || (dtype != 0 && dtype != 1) ||
+      (gdtype != 0 && gdtype != 1))
     return (int)cudaErrorInvalidValue;
-  return dispatch<Wide>(dtype, gdtype,
-                        {src, grid, gout, static_cast<float*>(gsrc), gsrc_out,
-                         ggrid, B, Ho, Wo, group, H, W, C, align,
-                         static_cast<cudaStream_t>(stream)});
+  cudaGetLastError();  // clear any earlier error of this runtime
+  const WideArgs a{src, grid, gout, gsrc, ggrid, static_cast<int*>(work),
+                   work_ints, B, Ho, Wo, group, H, W, C, align,
+                   static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
+  if (dtype == 0)
+    err = gdtype == 0 ? launch_wide<float, float>(a)
+                      : launch_wide<float, __nv_bfloat16>(a);
+  else
+    err = gdtype == 0 ? launch_wide<__nv_bfloat16, float>(a)
+                      : launch_wide<__nv_bfloat16, __nv_bfloat16>(a);
+  return (int)err;
 }
 
 // The same for warp_narrow: 1 <= C <= 8, and with gsrc a source's H*W*C
@@ -394,7 +747,7 @@ extern "C" int eamm_warp_narrow_backward(const void* src, const void* grid,
   if (C < 1 || C > 8 || !fits(B, Ho, Wo, group, H, W, C) ||
       (!gsrc && !ggrid))
     return (int)cudaErrorInvalidValue;
-  return dispatch<Narrow>(dtype, gdtype,
+  return dispatch_narrow(dtype, gdtype,
                           {src, grid, gout, static_cast<float*>(gsrc),
                            gsrc_out, ggrid, B, Ho, Wo, group, H, W, C, align,
                            static_cast<cudaStream_t>(stream)});

@@ -24,8 +24,9 @@ outputs' shapes.
 operator's autograd formula calls ``eamm::kp_expectation_backward``, whose
 CUDA implementation is the kernel K3b (``kp_expectation_backward``) and
 whose CPU implementation is the autodiff of the plain version
-(``kp_expectation_backward_plain``).  K5 has no backward: no training path
-calls it.
+(``kp_expectation_backward_plain``); ``backward_plan`` decides its launch,
+as ``fused_plan`` does K5's.  K5 has no backward: no training path calls
+it.
 """
 from __future__ import annotations
 
@@ -174,6 +175,7 @@ def _kp_expectation_backward_cuda(pred, jmap, temperature, g_value, g_jac):
     if B * K == 0 or h < 2 or w < 2:
         raise ValueError(f"kp_expectation_backward: shape "
                          f"{tuple(pred.shape)} needs rows and h, w >= 2")
+    plan = backward_launch_plan(pred)
     g_value = g_value.reshape(B, K, 2).contiguous()
     g_jac = g_jac.reshape(B, K, 2, 2).contiguous()
     grad_pred = torch.empty((B, K, h, w), dtype=torch.float32,
@@ -185,11 +187,12 @@ def _kp_expectation_backward_cuda(pred, jmap, temperature, g_value, g_jac):
         [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
          ctypes.c_void_p] + [ctypes.c_longlong] * 3
         + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     code = fn(pred.data_ptr(), pred.stride(0), pred.stride(1),
               jmap.data_ptr(), jmap.stride(0), jmap.stride(1), jmap.stride(2),
               g_value.data_ptr(), g_jac.data_ptr(), grad_pred.data_ptr(),
               grad_jmap.data_ptr(), B, K, h, w, float(temperature),
+              plan.groups, plan.smem_bytes, int(plan.tables), plan.blocks,
               torch.cuda.current_stream(pred.device).cuda_stream)
     kernels.check(lib, code, "kp_expectation_backward")
     kp_expectation_backward.launches += 1
@@ -289,6 +292,139 @@ def fused_launch_plan(prediction: torch.Tensor, jmap: torch.Tensor,
     return fused_plan(B, K, h, w, want_heatmap, functools.partial(
         _fused_resident, prediction.device, _DTYPES[prediction.dtype],
         _DTYPES[jmap.dtype]))
+
+
+# K3b's threads a block and the groups of 4 pixels a thread may hold in
+# registers (csrc/kp_expectation.cu kp_expectation_backward_kernel<G>); a
+# larger row is held in shared memory, 8 bytes a pixel, up to the largest
+# row K3b takes
+BACKWARD_THREADS = 256
+BACKWARD_GROUPS = (1, 2, 4)
+MAX_BACKWARD_PIXELS = FUSED_SMEM_BUDGET // 8
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How ``kp_expectation_backward`` launches: the groups of 4 pixels a
+    thread holds in registers (0: the row's logits and s in shared
+    memory), dynamic shared memory per block, whether it holds the
+    coordinate tables gx[w], gy[h], the blocks the card holds at once at
+    that plan, the blocks launched and the most rows one block walks."""
+    groups: int
+    smem_bytes: int
+    tables: bool
+    resident: int
+    blocks: int
+    rows_per_block: int
+
+
+def backward_plan(B: int, K: int, h: int, w: int,
+                  resident: Callable[[int, int], int]) -> BackwardPlan:
+    """K3b's launch for B*K rows of h*w pixels: the fewest register groups
+    that hold a row (P // 4 groups at most, at BACKWARD_THREADS threads),
+    else the shared-memory path; the coordinate tables where they fit;
+    persistent blocks, no more than ``resident(groups, smem_bytes)``,
+    balanced as ``fused_plan``'s.  Raises ``ValueError`` past
+    ``MAX_BACKWARD_PIXELS``."""
+    P = h * w
+    if P > MAX_BACKWARD_PIXELS:
+        raise ValueError(f"kp_expectation_backward: {h}x{w} pixels is more "
+                         f"than MAX_BACKWARD_PIXELS ({MAX_BACKWARD_PIXELS}), "
+                         "the largest row the kernel takes")
+    need = -(-(P // 4) // BACKWARD_THREADS)
+    groups = next((g for g in BACKWARD_GROUPS if g >= need), 0)
+    held = 0 if groups else 8 * P
+    tables = held + 4 * (h + w) <= FUSED_SMEM_BUDGET
+    smem = held + 4 * (h + w) if tables else held
+    n = resident(groups, smem)
+    rows_per_block = -(-B * K // n)
+    return BackwardPlan(groups=groups, smem_bytes=smem, tables=tables,
+                        resident=n, blocks=-(-B * K // rows_per_block),
+                        rows_per_block=rows_per_block)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowSlots:
+    """One row's split as K3b's kernel makes it (csrc ``row_slots``): the
+    first pixel of the first group, the groups of 4, the pixel after the
+    last group, the pixels outside the groups and whether the groups move
+    as 16-byte vectors."""
+    first: int
+    groups: int
+    after: int
+    loose: int
+    grouped: bool
+
+
+def row_slots(P: int, offsets) -> RowSlots:
+    """The split of a row of P float32 pixels whose ten planes (pred, the
+    four jmap planes, grad_pred, the four grad_jmap planes) start at the
+    element ``offsets``: vector groups from the first 16-byte boundary
+    when all ten planes reach it at the same pixel, else scalar groups
+    from pixel 0."""
+    heads = [(-o) % 4 for o in offsets]
+    grouped = heads[0] < P and all(hd == heads[0] for hd in heads)
+    first = heads[0] if grouped else 0
+    groups = (P - first) // 4
+    after = first + 4 * groups
+    return RowSlots(first=first, groups=groups, after=after,
+                    loose=first + P - after, grouped=grouped)
+
+
+def backward_slots(P: int, slots: RowSlots, groups: int,
+                   threads: int = BACKWARD_THREADS) -> list[list[int]]:
+    """The pixels each thread of K3b holds for one row: in a grouped row,
+    group q = t + g * threads of thread t (g < ``groups`` in registers,
+    any g with groups 0), else pixel k * threads + t for k < 4 * groups
+    (any k with groups 0) before ``slots.after``; and, for t < loose, one
+    pixel outside them."""
+    out = []
+    for t in range(threads):
+        held = []
+        if slots.grouped:
+            q = t
+            while q < slots.groups and (groups == 0
+                                        or q < t + groups * threads):
+                held.extend(range(slots.first + 4 * q,
+                                  slots.first + 4 * q + 4))
+                q += threads
+        else:
+            k = 0
+            while k * threads + t < slots.after and (groups == 0
+                                                     or k < 4 * groups):
+                held.append(k * threads + t)
+                k += 1
+        if t < slots.loose:
+            held.append(t if t < slots.first
+                        else slots.after + t - slots.first)
+        out.append(held)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_resident(device: torch.device, groups: int, smem: int) -> int:
+    """K3b's blocks that ``device`` holds at once for ``groups`` with
+    ``smem`` bytes of dynamic shared memory each, asked once per device
+    and plan (the query also lets the kernel take that much)."""
+    lib, fn = kernels.entry(
+        "kp_expectation", "eamm_kp_expectation_backward_resident",
+        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)])
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        kernels.check(lib, fn(groups, smem, ctypes.byref(out)),
+                      "kp_expectation_backward occupancy")
+    if out.value < 1:
+        raise RuntimeError(f"kp_expectation_backward: no block of {smem} "
+                           f"bytes of shared memory fits on {device}")
+    return out.value
+
+
+def backward_launch_plan(pred: torch.Tensor) -> BackwardPlan:
+    """The plan ``kp_expectation_backward`` launches with for this CUDA
+    tensor."""
+    B, K, h, w = pred.shape
+    return backward_plan(B, K, h, w, functools.partial(_backward_resident,
+                                                       pred.device))
 
 
 def kp_expectation_fused_plain(prediction: torch.Tensor, jmap: torch.Tensor,

@@ -38,6 +38,7 @@ shared warp has no backward: no training path calls it.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -131,6 +132,10 @@ _WARP_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _B16_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _BACKWARD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                   + [ctypes.c_void_p])
+# K1b's: pointers (grad_image and grad_grid or null), its workspace and
+# the workspace's ints, then as _BACKWARD_ARGS
+_WIDE_BACKWARD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
 
 
 def _launch(entry: str, image: torch.Tensor, grid: torch.Tensor,
@@ -252,11 +257,75 @@ def grid_sample_backward_plain(grad_out: torch.Tensor, image: torch.Tensor,
             grad_grid if need_grid else grid.new_empty(0))
 
 
+# K1b's source tiles (a warp a row) and channels a block, as in
+# csrc/warp_backward.cu (kTile, kSlice)
+WIDE_TILE = 8
+WIDE_SLICE = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class WideBackwardPlan:
+    """K1b's gather for [Bi, H, W, C] sources: tiles of WIDE_TILE pixels
+    across and down, the bins of one source (one more row and column than
+    tiles: a base corner at -1), channel slices of WIDE_SLICE (a block per
+    tile, source and slice) and the workspace in int32s (csrc
+    ``wide_layout``)."""
+    tiles_x: int
+    tiles_y: int
+    bins_x: int
+    bins: int
+    slices: int
+    workspace: int
+
+
+def wide_backward_plan(B: int, Ho: int, Wo: int, group: int, H: int, W: int,
+                       C: int, need_grid: bool) -> WideBackwardPlan:
+    """The plan of K1b for grad_out [B,Ho,Wo,C] of B // group sources of
+    [H,W,C]: workspace = bin counts, bin offsets (one more), padding to 8
+    bytes, (bin, rank) per output pixel, the bins' pixel list, and with
+    the grid gradient a float per (slice, output pixel, corner)."""
+    tiles_x, tiles_y = -(-W // WIDE_TILE), -(-H // WIDE_TILE)
+    bins_x = tiles_x + 1
+    bins = (tiles_y + 1) * bins_x
+    n_bins = B // group * bins
+    slices = -(-C // WIDE_SLICE)
+    BP = B * Ho * Wo
+    head = 2 * n_bins + 1
+    slot = head + (head & 1)
+    return WideBackwardPlan(
+        tiles_x=tiles_x, tiles_y=tiles_y, bins_x=bins_x, bins=bins,
+        slices=slices, workspace=slot + 3 * BP + (4 * slices * BP if need_grid else 0))
+
+
+def wide_backward_bins(grid: torch.Tensor, H: int, W: int,
+                       align_corners: bool, group: int = 1) -> torch.Tensor:
+    """Each output pixel's bin as K1b's count kernel finds it, flat over
+    [B*Ho*Wo]: the bin of the WIDE_TILE tile that holds its base corner
+    (floor x, floor y), counted from a base corner at -1, after the bins
+    of the sources before its own; -1 where no corner lies inside the
+    image.  A block of tile (ty, tx) reads the bins at rows ty, ty + 1 and
+    columns tx, tx + 1 of its source."""
+    B = grid.shape[0]
+    plan = wide_backward_plan(B, grid.shape[1], grid.shape[2], group, H, W,
+                              WIDE_SLICE, False)
+    x0 = torch.floor(_unnormalize(grid[..., 0].float(), W, align_corners))
+    y0 = torch.floor(_unnormalize(grid[..., 1].float(), H, align_corners))
+    inside = (x0 >= -1) & (x0 <= W - 1) & (y0 >= -1) & (y0 <= H - 1)
+    source = torch.arange(B, device=grid.device).view(B, 1, 1) // group
+    key = (source * plan.bins
+           + torch.div(y0.clamp(-1, H - 1) + WIDE_TILE, WIDE_TILE,
+                       rounding_mode="floor").long() * plan.bins_x
+           + torch.div(x0.clamp(-1, W - 1) + WIDE_TILE, WIDE_TILE,
+                       rounding_mode="floor").long())
+    return torch.where(inside, key, -1).flatten()
+
+
 def _launch_backward(entry: str, grad_out: torch.Tensor, image: torch.Tensor,
                      grid: torch.Tensor, align_corners: bool, need_image: bool,
                      need_grid: bool):
-    """Launch K1b or K2b for the gradients asked for; the image gradient
-    accumulates in float32 (the output itself for a float32 image)."""
+    """Launch K1b or K2b for the gradients asked for.  K1b gathers the
+    image gradient in the image type through its workspace; K2b
+    accumulates it in float32 (the output itself for a float32 image)."""
     group = check_shared_batch(image, grid)
     if image.dtype not in _DTYPES or grid.dtype not in _DTYPES:
         raise TypeError(f"{entry}: image {image.dtype}, grid {grid.dtype}; "
@@ -277,18 +346,26 @@ def _launch_backward(entry: str, grad_out: torch.Tensor, image: torch.Tensor,
     B, Ho, Wo, _ = grid.shape
     grad_image = (torch.empty_like(image) if need_image
                   else image.new_empty(0))
-    acc = (grad_image if image.dtype == torch.float32 else
-           torch.empty(image.shape, dtype=torch.float32, device=image.device)
-           ) if need_image else None
     grad_grid = torch.empty_like(g) if need_grid else grid.new_empty(0)
-    lib, fn = kernels.entry("warp_backward", entry, _BACKWARD_ARGS)
-    code = fn(image.data_ptr(), g.data_ptr(), gout.data_ptr(),
-              acc.data_ptr() if need_image else None,
-              grad_image.data_ptr() if need_image else None,
-              grad_grid.data_ptr() if need_grid else None,
-              _DTYPES[image.dtype], _DTYPES[g.dtype], B, Ho, Wo, group, H, W,
-              C, int(align_corners),
-              torch.cuda.current_stream(image.device).cuda_stream)
+    sizes = (_DTYPES[image.dtype], _DTYPES[g.dtype], B, Ho, Wo, group, H, W,
+             C, int(align_corners),
+             torch.cuda.current_stream(image.device).cuda_stream)
+    outputs = (grad_image.data_ptr() if need_image else None,
+               grad_grid.data_ptr() if need_grid else None)
+    if entry == "eamm_warp_wide_backward":
+        plan = wide_backward_plan(B, Ho, Wo, group, H, W, C, need_grid)
+        work = torch.empty(plan.workspace, dtype=torch.int32,
+                           device=image.device)
+        lib, fn = kernels.entry("warp_backward", entry, _WIDE_BACKWARD_ARGS)
+        code = fn(image.data_ptr(), g.data_ptr(), gout.data_ptr(), *outputs,
+                  work.data_ptr(), plan.workspace, *sizes)
+    else:
+        acc = (grad_image if image.dtype == torch.float32 else
+               torch.empty(image.shape, dtype=torch.float32,
+                           device=image.device)) if need_image else None
+        lib, fn = kernels.entry("warp_backward", entry, _BACKWARD_ARGS)
+        code = fn(image.data_ptr(), g.data_ptr(), gout.data_ptr(),
+                  acc.data_ptr() if need_image else None, *outputs, *sizes)
     kernels.check(lib, code, entry)
     return grad_image, grad_grid
 
