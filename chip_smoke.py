@@ -157,7 +157,11 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    run's per-step counts); and one fine-tune step with
    ``--compute_dtype bfloat16``.  Phase 3b's K3b cases include part2's
    shapes: 256 images of 10 rows (the frozen detectors at the YAML's
-   16 x 16 batch) and of 4 rows (EmotionMap's ``map_4`` head).
+   16 x 16 batch) and of 4 rows (EmotionMap's ``map_4`` head); K1b's and
+   K2b's edges add near-identity grids with each gradient choice, grids
+   wholly outside the image, ragged 29 x 45 sources, other groups and,
+   for K2b, grad_out laid out as the training path passes it
+   (``k1b_cases``, ``k2b_cases``).
 9. part2 and the evaluation modes (after phase 8): one ``train_part2``
    gradient (``map_4``, ``smooth`` on) at TINY widths on the CPU in
    float64, on the CPU in float32 on 1, 2, 4 and 8 threads and on the
@@ -242,9 +246,13 @@ Phases, each printing one JSON line; any failure raises (exit code 1):
    fine-tune step's shapes in float32 with the gradients the training
    path asks for (K1b both, K2b the grid's), beside
    ``aten.grid_sampler_2d_backward`` for the warps; their bound reads
-   each input and writes each gradient once (``timing.bound_accumulator``
-   also counts the image gradient's float32 accumulator as zeroed, read
-   and written once per element); K3b also at part2's ``map_4`` shape
+   each input and writes each gradient once; K1b and K2b also at a
+   near-identity grid, at the fine-tune step's own arguments (captured
+   in phase 8) and with the image gradient alone, the grid's alone and
+   both (``timing.attribution``; K2b's both also against
+   ``bound_accumulator``, which counts its first design's float32
+   accumulator as zeroed, read and written once per element), K2b with
+   its launch ``plan``; K3b also at part2's ``map_4`` shape
    (256 images of 4 rows) with its plain version and bound
    (``timing.map_4``).  K6 at its own shape in the same turns as K1 on the
    same inputs (``timing.warp_wide_ms``), with F.grid_sample (which rounds
@@ -656,8 +664,8 @@ def grad_cases(B: int = 6, frames: int = 4, N: int = 96) -> list:
     """(kernel, dtype, args) of the backward kernels at the fine-tune
     step's shapes (B identities, ``frames`` supervised frames, N keypoint
     rows), both gradients and the ones the training path asks for, plus a
-    ragged output over two sources and align_corners=True, then K1b's and
-    K3b's edges (``k1b_cases``, ``k3b_cases``)."""
+    ragged output over two sources and align_corners=True, then K1b's,
+    K2b's and K3b's edges (``k1b_cases``, ``k2b_cases``, ``k3b_cases``)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     n = B * frames
     cases = []
@@ -680,7 +688,7 @@ def grad_cases(B: int = 6, frames: int = 4, N: int = 96) -> list:
                         (PART2_ROWS, (58, 58), 4)):
         cases.append(("kp_expectation_backward", torch.float32,
                       kp_grad_case(rows, gen, *hw, K=K)))
-    return cases + k1b_cases(gen, n) + k3b_cases(gen)
+    return cases + k1b_cases(gen, n) + k2b_cases(gen, n) + k3b_cases(gen)
 
 
 def k1b_cases(gen: torch.Generator, n: int) -> list:
@@ -709,6 +717,52 @@ def k1b_cases(gen: torch.Generator, n: int) -> list:
                       warp_grad_case(n // 4, n, 256, dtype, gen,
                                      grid="near_identity")))
     return cases
+
+
+def k2b_cases(gen: torch.Generator, n: int) -> list:
+    """K2b at its edges, both dtypes: the near-identity grid of the
+    training path with each of the three gradient choices; grids wholly
+    outside the image; a ragged 29 x 45 source under 13 x 17 grids, whose
+    sources start part-way into a run of pixels (group 11, with
+    align_corners, and group 3); group 1; grad_out laid out as the
+    training path passes it (``planar``, read in place), at 64 x 64 and
+    13 x 17; C = 5 (the kernel for any C up to 8)."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for need in ((True, True), (False, True), (True, False)):
+            cases.append(("warp_narrow_backward", dtype,
+                          warp_grad_case(n, 11 * n, 3, dtype, gen, need=need,
+                                         grid="near_identity")))
+        cases.append(("warp_narrow_backward", dtype,
+                      warp_grad_case(2, 22, 3, dtype, gen, grid="outside")))
+        cases.append(("warp_narrow_backward", dtype,
+                      warp_grad_case(3, 33, 3, dtype, gen, hw=(13, 17),
+                                     align=True, image_hw=(29, 45),
+                                     grid="near_identity")))
+        cases.append(("warp_narrow_backward", dtype,
+                      warp_grad_case(3, 9, 3, dtype, gen, hw=(13, 17),
+                                     image_hw=(29, 45))))
+        cases.append(("warp_narrow_backward", dtype,
+                      warp_grad_case(4, 4, 3, dtype, gen, image_hw=(29, 45),
+                                     grid="near_identity")))
+        for hw in ((64, 64), (13, 17)):
+            args = warp_grad_case(n, 11 * n, 3, dtype, gen, hw=hw,
+                                  grid="near_identity")
+            cases.append(("warp_narrow_backward", dtype,
+                          (planar(args[0]), *args[1:])))
+        cases.append(("warp_narrow_backward", dtype,
+                      warp_grad_case(2, 6, 5, dtype, gen, hw=(13, 17))))
+    return cases
+
+
+def planar(grad_out: torch.Tensor) -> torch.Tensor:
+    """``grad_out`` [N,h,w,C] as dense motion's gradient reaches K2b: a
+    plane a channel behind a heatmap's plane, C + 1 planes an image."""
+    N, h, w, C = grad_out.shape
+    planes = torch.zeros((N, C + 1, h, w), dtype=grad_out.dtype,
+                         device=grad_out.device)
+    planes[:, 1:] = grad_out.permute(0, 3, 1, 2)
+    return planes[:, 1:].permute(0, 2, 3, 1)
 
 
 def k3b_cases(gen: torch.Generator) -> list:
@@ -2277,17 +2331,19 @@ def timed_steps(maker: str):
 
 
 @contextlib.contextmanager
-def capture_k1b(captured: dict):
-    """While in use, the first K1b launch's arguments (grad_out, image,
-    grid, align_corners, need_image, need_grid), cloned into
-    ``captured["args"]``: ``warp_cuda._launch_backward`` is wrapped, as
-    ``capture_warps`` wraps the forward warps."""
+def capture_backward(captured: dict):
+    """While in use, the first K1b and the first K2b launch's arguments
+    (grad_out, image, grid, align_corners, need_image, need_grid), cloned
+    into ``captured`` by kernel name: ``warp_cuda._launch_backward`` is
+    wrapped, as ``capture_warps`` wraps the forward warps."""
     inner = warp_cuda._launch_backward
+    names = {"eamm_warp_wide_backward": "warp_wide_backward",
+             "eamm_warp_narrow_backward": "warp_narrow_backward"}
 
     def spy(entry, grad_out, image, grid, *rest):
-        if entry == "eamm_warp_wide_backward" and "args" not in captured:
-            captured["args"] = (grad_out.clone(), image.clone(),
-                                grid.clone(), *rest)
+        if names[entry] not in captured:
+            captured[names[entry]] = (grad_out.clone(), image.clone(),
+                                      grid.clone(), *rest)
         return inner(entry, grad_out, image, grid, *rest)
 
     warp_cuda._launch_backward = spy
@@ -2300,15 +2356,15 @@ def capture_k1b(captured: dict):
 def train_entry_point(mode: str, root: str, work: str,
                       device: str = "cuda", steps: int = TRAIN_STEPS,
                       jaco_net: str = "cnn",
-                      k1b_args: dict | None = None) -> dict:
+                      backward_args: dict | None = None) -> dict:
     """``eamm-torch-run``'s ``main`` at FULL_CONFIG widths (ATNet's
     ``jaco_net`` decoder) and the YAML's batch: ``steps`` steps with every
     launch count zeroed just before and read just after, each step's wall
     seconds, peak memory; every loss finite, the trained models changed,
     the frozen ones (weights and BatchNorm statistics) bit for bit as
     drawn; a checkpoint, then one more step resumed from it with
-    ``--checkpoint latest``.  With ``k1b_args``, the run's first K1b
-    launch's arguments go into it (``capture_k1b``)."""
+    ``--checkpoint latest``.  With ``backward_args``, the run's first K1b
+    and K2b launches' arguments go into it (``capture_backward``)."""
     from eamm_tpu_torch.cli.run import main as run_main
     from eamm_tpu_torch.train.logging import read_scalars
     from eamm_tpu_torch.train.loop import build_models
@@ -2322,7 +2378,7 @@ def train_entry_point(mode: str, root: str, work: str,
     argv = ["--config", path, "--mode", mode, "--log_dir", log,
             *(["--cpu"] if device == "cpu" else [])]
     images = CountedVisualizer()
-    capture = (capture_k1b(k1b_args) if k1b_args is not None
+    capture = (capture_backward(backward_args) if backward_args is not None
                else contextlib.nullcontext())
     try:
         with timed_steps("make_part1_step") as (walls, profiled), capture:
@@ -2767,17 +2823,18 @@ def training_phase() -> dict:
 
 def training_runs(device: str) -> dict:
     """Both modes through the entry point on a synthetic tree, then the
-    bfloat16 step; ``k1b_args`` the fine-tune's first K1b arguments."""
-    k1b_args: dict = {}
+    bfloat16 step; ``backward_args`` the fine-tune's first K1b and K2b
+    arguments."""
+    backward_args: dict = {}
     with tempfile.TemporaryDirectory() as work:
         root = os.path.join(work, "lrw")
         write_lrw_tree(root)
         runs = {mode: train_entry_point(
-                    mode, root, work, device, k1b_args=k1b_args
+                    mode, root, work, device, backward_args=backward_args
                     if mode == "train_part1_fine_tune" else None)
                 for mode in TRAIN_PARAMS}
         bf16_step(root, work, device)
-    return {"runs": runs, "k1b_args": k1b_args.get("args")}
+    return {"runs": runs, "backward_args": backward_args}
 
 
 # ------------------------------------- phase 9: part2 and the evaluation modes
@@ -3791,11 +3848,11 @@ def warp_backward_bound(args: tuple, grads: tuple, accumulator=False):
     """A warp backward's bound: bytes at 3.35 TB/s, each input read once
     (the image only for the grid's sum) and each gradient written once,
     against 2 operations per (pixel, corner, channel) for each gradient at
-    67 TFLOP/s; with ``accumulator``, K2b's float32 accumulator counted as
-    zeroed, read and written once per element (the atomics'
-    read-modify-write; for a float32 image the accumulator is the
-    gradient) and a bfloat16 gradient's rounding pass, the traffic that
-    design cannot avoid."""
+    67 TFLOP/s; with ``accumulator``, the float32 accumulator of K2b's
+    first design counted as zeroed, read and written once per
+    element (the atomics' read-modify-write; for a float32 image the
+    accumulator is the gradient) and a bfloat16 gradient's rounding pass,
+    the traffic that design could not avoid."""
     grad_out, image, grid, _, need_image, need_grid = args
     grad_image, grad_grid = grads
     n_bytes = nbytes(grad_out, grid, grad_grid)
@@ -3812,21 +3869,26 @@ def warp_backward_bound(args: tuple, grads: tuple, accumulator=False):
                                                       + 2 * need_grid))
 
 
-def k1b_timings(args: tuple, library, wrapper,
-                captured: tuple | None) -> dict:
-    """K1b beyond its row's random grid, in turns with the library's
-    ``aten.grid_sampler_2d_backward`` on the same inputs: the
-    near-identity grid at the table's shape, the fine-tune step's own
-    arguments (``captured``, from phase 8), and the table's random inputs
-    with the image gradient alone and the grid gradient alone (with both,
-    the row's ``ms``); each {median, min, max} ms with its bound."""
+def backward_extra_timings(args: tuple, library, wrapper,
+                           captured: tuple | None) -> dict:
+    """K1b or K2b beyond its row's random grid, in turns with the
+    library's ``aten.grid_sampler_2d_backward`` on the same inputs: a
+    near-identity grid at the row's shape and gradients, the fine-tune
+    step's own arguments (``captured``, from phase 8), and the row's
+    random inputs with the image gradient alone, the grid gradient alone
+    and both; each {median, min, max} ms with its bound (each input read
+    once and each gradient written once; with both gradients K2b also
+    carries ``bound_accumulator``, its first design's floor)."""
     gen = torch.Generator(device="cuda").manual_seed(7)
-    inputs = {"near_identity": warp_grad_case(24, 24, 256, torch.float32,
-                                              gen, grid="near_identity")}
+    grad_out, image, grid = args[:3]
+    inputs = {"near_identity": warp_grad_case(
+        image.shape[0], grid.shape[0], image.shape[3], image.dtype, gen,
+        need=args[4:], grid="near_identity")}
     if captured is not None:
         inputs["captured"] = captured
     inputs["image_only"] = args[:4] + (True, False)
     inputs["grid_only"] = args[:4] + (False, True)
+    inputs["both"] = args[:4] + (True, True)
     fns = {}
     for key, a in inputs.items():
         fns[key] = graphed(lambda a=a: wrapper(*a))
@@ -3835,27 +3897,33 @@ def k1b_timings(args: tuple, library, wrapper,
     times = in_turns(fns)
     out = {}
     for key, a in inputs.items():
-        bound, by = warp_backward_bound(a, wrapper(*a))
+        grads = wrapper(*a)
+        bound, by = warp_backward_bound(a, grads)
         out[key] = {**times[key], "bound_ms": bound, "bound_by": by,
                     "share": bound / times[key]["median"],
                     "library_ms": times.get(f"{key}_library"),
                     "shapes": [list(t.shape) for t in a[:3]],
                     "dtypes": [str(t.dtype) for t in a[:3]],
                     "flags": list(a[3:])}
+        if key == "both" and image.shape[3] <= 8:
+            bound, by = warp_backward_bound(a, grads, accumulator=True)
+            out[key]["bound_accumulator"] = {
+                "bound_ms": bound, "bound_by": by,
+                "share": bound / times[key]["median"]}
     return out
 
 
-def backward_timings(k1b_args: tuple | None = None) -> dict:
+def backward_timings(captured: dict | None = None) -> dict:
     """The backward kernels at the fine-tune step's shapes, float32 (B 6,
     4 supervised frames, 96 keypoint rows), with the gradients the
     training path asks for (K1b both, K2b the grid's): device ms by CUDA
     graph replay in turns with the library call of the same gradient
     (``aten.grid_sampler_2d_backward``; K3b has none), the plain version
-    eager, and the bound (``warp_backward_bound``; K2b's row also carries
-    ``bound_accumulator``, its design's floor).  K1b adds ``k1b_timings``
-    (at ``k1b_args``, the fine-tune step's own arguments, when given) and
-    the attribution by the gradients asked for; K3b its ``map_4`` shape
-    and its launch plan."""
+    eager, and the bound (``warp_backward_bound``).  K1b and K2b add
+    ``backward_extra_timings`` (at ``captured``'s arguments, the fine-tune
+    step's own, when given) and the attribution by the gradients asked
+    for, K2b its launch plan; K3b its ``map_4`` shape and its launch
+    plan."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     out = {}
     for name, Bi, group, C, need in (
@@ -3880,17 +3948,15 @@ def backward_timings(k1b_args: tuple | None = None) -> dict:
                           "library_ms": graphed(library(args))})
         grads = wrapper(*args)
         timing = dict(times)
-        if name == "warp_wide_backward":
-            timing.update(k1b_timings(args, library, wrapper, k1b_args))
-            timing["attribution"] = {
-                "image_only_ms": timing["image_only"]["median"],
-                "grid_only_ms": timing["grid_only"]["median"],
-                "both_ms": times["ms"]["median"]}
-        else:
-            bound_acc = warp_backward_bound(args, grads, accumulator=True)
-            timing["bound_accumulator"] = {
-                "bound_ms": bound_acc[0], "bound_by": bound_acc[1],
-                "share": bound_acc[0] / times["ms"]["median"]}
+        timing.update(backward_extra_timings(
+            args, library, wrapper, (captured or {}).get(name)))
+        timing["attribution"] = {
+            "image_only_ms": timing["image_only"]["median"],
+            "grid_only_ms": timing["grid_only"]["median"],
+            "both_ms": timing["both"]["median"]}
+        if name == "warp_narrow_backward":
+            timing["plan"] = dataclasses.asdict(
+                warp_cuda.narrow_backward_launch_plan(*args[1:3], *args[4:]))
         out[name] = {"ms": times["ms"]["median"],
                      "library_ms": times["library_ms"]["median"],
                      "plain_ms": time_ms(lambda: plain(*args)),
@@ -4028,7 +4094,7 @@ def main() -> int:
     gan = gan_phase(pipe)
     mesh = mesh_phase(pipe, training["runs"]["train_part1"])
     times = {**timings(captured),
-             **backward_timings(training["k1b_args"])}
+             **backward_timings(training["backward_args"])}
 
     # whose launches each row counts
     source_of = {name: ("emotional linear_3 frames 10 s", counts["frames"])

@@ -69,8 +69,36 @@
 //   round_out(fl(tx0 * r0) + fl(tx1 * r1)),
 //   rK = bf16(fl(ty0' * s(y0, xK)) + fl(ty1' * s(y1, xK))),
 // with __fmul_rn / __fadd_rn so that nvcc contracts nothing into an FMA
-// and each product and sum rounds as in the TPU kernel.  Bound by its
-// output bytes, as warp_wide is.
+// and each product and sum rounds as in the TPU kernel; bitwise its plain
+// version.  Bound by its output bytes, as warp_wide is (bf16 [1,64,64,256]
+// by [128,64,64,2]: 272.6 MB, 0.0814 ms at 3.35 TB/s), with about twice
+// warp_wide's floating-point work.  Its first design, warp_wide's loop
+// with each column's two loads, products and rounding one after the
+// other, took 0.1687 ms on an H100 (700 W) against warp_wide's 0.1211 on
+// the same inputs; in trial builds (chip_trials.py k6-parent) leaving the
+// rounding out gave 0.1521, the four loads hoisted 0.1564 (48 registers
+// to 40), the roundings paired 0.1620, all of that with a row's second
+// product fused 0.1462; 40 registers or the loop unrolled twice, no
+// faster.  So the loads' wait and the instruction count, not the
+// roundings alone.  Here:
+//   - the four corner loads first, then two channels at a time;
+//   - a bfloat16 image's row value is one FMA over its first product (a
+//     bfloat16 tent times a bfloat16 value is exact in float32), a
+//     float32 image's two products and a sum as written;
+//   - two row values rounded by one cvt.rn.bf16x2.f32, widened by shifts;
+//   - a thread keeps one channel vector where the vectors divide the
+//     block (C = 256), so a step costs no division (a division a step:
+//     7-13% slower);
+//   - its own kernel, warp_wide_b16_kernel, sharing warp_wide's tile
+//     (wide_tile) with its registers capped at 32, eight blocks an SM
+//     (uncapped, 48 registers, within 1% either way; the cap on the
+//     shared template gave warp_wide 40 registers and cost it 8%).
+// It takes 1.09-1.15x warp_wide's time on the same inputs (0.135-0.140
+// against 0.121-0.124 ms, three trial runs in turns), 58-60% of its
+// bound: six more instructions a value than warp_wide's 8.5 (the second
+// products, the rounding and widening, the x pass's products and sum).
+// Reading the corners through L2 only, the offsets or the weights as one
+// 16-byte vector, or two pixels a step moved it by 1-4% either way.
 //
 // warp_groups (C not a multiple of 8, e.g. 35): pixel rows are not 16-byte
 // aligned, so a thread owns up to 8 channels of one pixel and reads and
@@ -147,6 +175,41 @@ __device__ __forceinline__ void tents(float gx, float gy, int H, int W,
   wgt[3] = to_float(from_float<T>(tent(y, cy[1])));
 }
 
+// Channels j and j + 1 of a 16-byte vector of T, as floats.
+__device__ __forceinline__ float2 pair(const uint4& raw, int j,
+                                       __nv_bfloat16) {
+  const unsigned w = (&raw.x)[j >> 1];
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
+}
+__device__ __forceinline__ float2 pair(const uint4& raw, int j, float) {
+  return make_float2(__uint_as_float((&raw.x)[j]),
+                     __uint_as_float((&raw.x)[j + 1]));
+}
+
+// K6's row value before its rounding, fl(ty0 * s0) + fl(ty1 * s1) rounded
+// once more.  For a bfloat16 image each product of a bfloat16 tent and a
+// bfloat16 value is exact in float32 (8-bit significands; a product in
+// float32's normal range), so the rounded sum is one FMA over the first
+// product.
+template <typename T>
+__device__ __forceinline__ float row_sum(float ty0, float s0, float ty1,
+                                         float s1) {
+  if constexpr (sizeof(T) == 2)
+    return fmaf(ty1, s1, __fmul_rn(ty0, s0));
+  else
+    return __fadd_rn(__fmul_rn(ty0, s0), __fmul_rn(ty1, s1));
+}
+
+// Two row values rounded to bfloat16 by one cvt.rn.bf16x2.f32 and
+// widened back by shifts.
+__device__ __forceinline__ float2 round_pair(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const unsigned w = *reinterpret_cast<const unsigned*>(&h);
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
+}
+
 // One pixel's (x, y) in one 8-byte (float32) or 4-byte (bfloat16) load.
 __device__ __forceinline__ float2 load_xy(const float* g) {
   return __ldg(reinterpret_cast<const float2*>(g));
@@ -202,6 +265,45 @@ __device__ __forceinline__ void load_px(const float* p, float v[CP]) {
 }
 
 
+// K6's 16-byte vector of output channels c0.. of one pixel, from its
+// corners' offsets and {tx0, tx1, ty0', ty1'} (a 16-byte row of shared
+// memory): the four corners' loads first (a corner outside the image
+// reads as zeros, whose product with a tent, >= 0, is +0), then two
+// channels at a time, each column's row value rounded to bfloat16 as a
+// pair, weighted by its x tent, the two columns summed and rounded to T.
+template <typename T>
+__device__ __forceinline__ void b16_vector(const T* __restrict__ s,
+                                           T* __restrict__ o,
+                                           const int (&taps)[4],
+                                           const float (&weights)[4],
+                                           int out_off, int c0) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int4 offs = make_int4(taps[0], taps[1], taps[2], taps[3]);
+  const float4 w = *reinterpret_cast<const float4*>(weights);
+  uint4 raw[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int off = (&offs.x)[c];
+    raw[c] = off >= 0 ? __ldg(reinterpret_cast<const uint4*>(s + off + c0))
+                      : make_uint4(0u, 0u, 0u, 0u);
+  }
+  const float tx0 = w.x, tx1 = w.y, ty0 = w.z, ty1 = w.w;
+  float acc[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; j += 2) {
+    float2 v[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = pair(raw[c], j, T());
+    const float2 r0 = round_pair(row_sum<T>(ty0, v[0].x, ty1, v[2].x),
+                                 row_sum<T>(ty0, v[0].y, ty1, v[2].y));
+    const float2 r1 = round_pair(row_sum<T>(ty0, v[1].x, ty1, v[3].x),
+                                 row_sum<T>(ty0, v[1].y, ty1, v[3].y));
+    acc[j] = __fadd_rn(__fmul_rn(tx0, r0.x), __fmul_rn(tx1, r1.x));
+    acc[j + 1] = __fadd_rn(__fmul_rn(tx0, r0.y), __fmul_rn(tx1, r1.y));
+  }
+  __stcs(reinterpret_cast<uint4*>(o + out_off + c0), pack(acc, T()));
+}
+
 constexpr int kWideTile = 8;            // 8x8 output pixels per block
 constexpr int kWidePix = kWideTile * kWideTile;
 constexpr int kWideThreads = 256;
@@ -215,14 +317,14 @@ constexpr int kMaxSmem = 232448;        // a block's opt-in maximum on sm_90
 // grid: x over tiles (row-major over ceil(Ho/8) x ceil(Wo/8)), y over B.
 // B16: K6's two passes (tents(), the rows rounded to bfloat16), else the
 // bilinear sample of corners().
-template <typename T, typename G, bool B16 = false>
-__global__ void __launch_bounds__(kWideThreads)
-warp_wide_kernel(const T* __restrict__ src, const G* __restrict__ grid,
-                 T* __restrict__ out, int Ho, int Wo, int group, int H, int W,
-                 int C, int align) {
+template <typename T, typename G, bool B16>
+__device__ __forceinline__ void
+wide_tile(const T* __restrict__ src, const G* __restrict__ grid,
+          T* __restrict__ out, int Ho, int Wo, int group, int H, int W, int C,
+          int align) {
   constexpr int VEC = 16 / sizeof(T);   // channels per 16-byte vector
   __shared__ int s_src[kWidePix][4];    // corner offsets idx*C, or -1
-  __shared__ float s_wgt[kWidePix][4];
+  __shared__ __align__(16) float s_wgt[kWidePix][4];  // K6: 16-byte rows
   __shared__ int s_out[kWidePix];       // output offset p*C in the grid
   const int tiles_x = (Wo + kWideTile - 1) / kWideTile;
   const int ty = blockIdx.x / tiles_x, tx = blockIdx.x - ty * tiles_x;
@@ -254,43 +356,28 @@ warp_wide_kernel(const T* __restrict__ src, const G* __restrict__ grid,
   T* o = out + (size_t)b * P * C;
   const int vecs = C / VEC;
   const int pairs = n_px * vecs;
+  if constexpr (B16) {
+    // a thread keeps one channel vector where the vectors divide the
+    // block's threads (C = 256: 32 vectors, 8 pixels at a time)
+    if (kWideThreads % vecs == 0) {
+      const int c0 = (t % vecs) * VEC;
+#pragma unroll 1
+      for (int q = t / vecs; q < n_px; q += kWideThreads / vecs)
+        b16_vector(s, o, s_src[q], s_wgt[q], s_out[q], c0);
+      return;
+    }
+#pragma unroll 1
+    for (int k = t; k < pairs; k += kWideThreads) {
+      const int q = k / vecs;
+      b16_vector(s, o, s_src[q], s_wgt[q], s_out[q], (k - q * vecs) * VEC);
+    }
+    return;
+  }
 #pragma unroll 1
   for (int k = t; k < pairs; k += kWideThreads) {
     const int q = k / vecs;
     const int c0 = (k - q * vecs) * VEC;
     float acc[VEC];
-    if constexpr (B16) {
-      // column xK's row value rK, then acc = fl(tx0 r0) + fl(tx1 r1); a
-      // corner outside the image adds nothing (a zero product)
-      float term[2][VEC];
-#pragma unroll
-      for (int col = 0; col < 2; ++col) {
-        float p[2][VEC];
-#pragma unroll
-        for (int row = 0; row < 2; ++row) {
-          const int off = s_src[q][2 * row + col];
-          float val[VEC];
-          if (off >= 0)
-            unpack(__ldg(reinterpret_cast<const uint4*>(s + off + c0)), val,
-                   T());
-          const float w = s_wgt[q][2 + row];
-#pragma unroll
-          for (int j = 0; j < VEC; ++j)
-            p[row][j] = off >= 0 ? __fmul_rn(w, val[j]) : 0.f;
-        }
-        const float wx = s_wgt[q][col];
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          const float r = __bfloat162float(
-              __float2bfloat16_rn(__fadd_rn(p[0][j], p[1][j])));
-          term[col][j] = __fmul_rn(wx, r);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) acc[j] = __fadd_rn(term[0][j], term[1][j]);
-      __stcs(reinterpret_cast<uint4*>(o + s_out[q] + c0), pack(acc, T()));
-      continue;
-    }
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
 #pragma unroll
@@ -305,6 +392,23 @@ warp_wide_kernel(const T* __restrict__ src, const G* __restrict__ grid,
     }
     __stcs(reinterpret_cast<uint4*>(o + s_out[q] + c0), pack(acc, T()));
   }
+}
+
+template <typename T, typename G>
+__global__ void __launch_bounds__(kWideThreads)
+warp_wide_kernel(const T* __restrict__ src, const G* __restrict__ grid,
+                 T* __restrict__ out, int Ho, int Wo, int group, int H, int W,
+                 int C, int align) {
+  wide_tile<T, G, false>(src, grid, out, Ho, Wo, group, H, W, C, align);
+}
+
+// K6, its registers capped at 32 for eight blocks an SM.
+template <typename T, typename G>
+__global__ void __launch_bounds__(kWideThreads, 8)
+warp_wide_b16_kernel(const T* __restrict__ src, const G* __restrict__ grid,
+                     T* __restrict__ out, int Ho, int Wo, int group, int H,
+                     int W, int C) {
+  wide_tile<T, G, true>(src, grid, out, Ho, Wo, group, H, W, C, 0);
 }
 
 // Shared memory of warp_narrow_kernel: the padded source, then the output
@@ -457,9 +561,15 @@ template <typename T, typename G, bool B16 = false>
 cudaError_t launch_wide(const Args& a) {
   const int tiles = ((a.Ho + kWideTile - 1) / kWideTile) *
                     ((a.Wo + kWideTile - 1) / kWideTile);
-  warp_wide_kernel<T, G, B16><<<dim3(tiles, a.B), kWideThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.src), static_cast<const G*>(a.grid),
-      static_cast<T*>(a.out), a.Ho, a.Wo, a.group, a.H, a.W, a.C, a.align);
+  if constexpr (B16)
+    warp_wide_b16_kernel<T, G><<<dim3(tiles, a.B), kWideThreads, 0,
+                                 a.stream>>>(
+        static_cast<const T*>(a.src), static_cast<const G*>(a.grid),
+        static_cast<T*>(a.out), a.Ho, a.Wo, a.group, a.H, a.W, a.C);
+  else
+    warp_wide_kernel<T, G><<<dim3(tiles, a.B), kWideThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.src), static_cast<const G*>(a.grid),
+        static_cast<T*>(a.out), a.Ho, a.Wo, a.group, a.H, a.W, a.C, a.align);
   return cudaGetLastError();
 }
 

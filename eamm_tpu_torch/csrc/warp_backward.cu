@@ -19,9 +19,9 @@
 //     unnormalize factor (W/2, H/2; (W-1)/2, (H-1)/2 with align_corners).
 // A corner outside the image contributes to neither, and floor() is flat:
 // what autodiff of the plain version (ops/warp.py grid_sample) gives.
-// Sums are float32, rounded once to the image type for grad_image (K2b
-// accumulates in a float32 buffer: the output itself for a float32 image,
-// else scratch rounded once); grad_grid is written in the grid's type.
+// Sums are float32, rounded once to the image type for grad_image, which
+// each kernel writes once with no accumulator; grad_grid is written in
+// the grid's type.
 //
 // What bounds them: the bytes.  Each input read once and each gradient
 // written once is 303.6 MB for K1b at the fine-tune step's shape (f32
@@ -71,14 +71,55 @@
 // training path's grids); a warp waits on one batch of four loads at a
 // time, and batches of eight or unrolled tile loads were slower.
 //
-// K2b (C <= 8, small sources) accumulates grad_image for its source in
-// shared memory first, so the global atomics are one per source value per
-// block, then adds the block's sum to device memory; a thread owns a pixel
-// and its C channels, so its grid gradient needs no reduction.
+// K2b, redesigned.  The training path asks it for the grid gradient
+// alone, f32 [24,64,64,3] by [264,64,64,2] (group 11): 31.5 MB, 0.0094 ms
+// at 3.35 TB/s.  The first design (a thread a pixel, eight pixels one
+// after another; per pixel its (x, y), 12 scalar gathers of the source
+// from L2 and 3 of grad_out; for grad_image a memset, a shared-memory
+// float atomic per pixel, corner and channel, a global atomic per source
+// value per block and a rounding pass) took 0.0252 ms on an H100 (700 W).
+// Trial builds that left one part out (chip_trials.py k2b-parent): the
+// grid's loads 0.0156, the gathers 0.0151, grad_out's loads 0.0249, the
+// stores 0.0246, all four 0.0115.  So each pixel's chain of grid load,
+// corners and gathers cost it, not its bytes.  Here:
+//   - persistent blocks, each for one source, stage its bytes as they are
+//     in shared memory with 16-byte loads, so a corner is 4 bytes a
+//     channel from shared memory (a bulk copy, cp.async.bulk completed on
+//     an mbarrier, measured 11% slower; C = 3 is read unpadded);
+//   - a lane a pixel, neighbouring lanes on neighbouring pixels, four
+//     pixels a thread a block apart, all their loads issued before any
+//     arithmetic; 32-bit index math inside a source;
+//   - grad_out read in place through its strides: dense motion's
+//     gradient arrives a plane a channel (its concatenation is channel
+//     first), and making it NHWC contiguous cost 0.0094 ms a call;
+//   - the grid gradient's arithmetic per pixel is the first design's.
+// The grid gradient alone takes 0.0136 ms (69% of its bound), 0.0126 at
+// near-identity grids, 0.0146 at the fine-tune step's own arguments
+// (aten's grid_sampler_2d_backward 0.0249).  Tried and slower
+// (chip_trials.py k2b): a lane a run of 16 bytes of one channel's pixels
+// with 16-byte loads and stores (11%: four-apart lanes share
+// shared-memory banks; loading each run a tile ahead cost it 3-5% more),
+// evict-first loads (14%), eight pixels a thread (6%), 512 threads (19%),
+// registers capped for three or four blocks an SM (3%).
+// The image gradient: each block adds its pixels' terms into float32 sums
+// of the source in its shared memory (a float atomic there is a CAS loop
+// on sm_90a), and the source's blocks, one thread block cluster of up to
+// 8 (512 threads each, so that 8 still fill the card), add those sums in
+// block order through distributed shared memory and write grad_image
+// once in the image type: no memset, no global atomics, no rounding pass.
+// Both gradients take 0.0515 ms (the first design 0.0674), the image
+// gradient alone 0.0442 (0.0423): the CAS loops.  Clusters of up to 16
+// (11 blocks a source, fewer clusters at once) were 45% slower, 256
+// threads 56%.  grad_grid is deterministic; grad_image's sums within a
+// block follow the atomics' order, so its last bit may differ between
+// runs.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -88,8 +129,10 @@ constexpr int kSlice = 128;             // channels a block: 32 lanes x 4
 constexpr int kChunk = kGatherThreads;  // bin entries staged at once
 constexpr int kBinThreads = 256;
 constexpr int kScanThreads = 1024;
-constexpr int kNarrowThreads = 256;
-constexpr int kNarrowBlocks = 528;      // 4 blocks on each of 132 SMs
+// K2b's threads a block: with the image gradient 512, so that a cluster
+// of at most 8 blocks a source still fills the card, else 256
+template <bool IMG>
+constexpr int kNarrowThreads = IMG ? 512 : 256;
 constexpr int kMaxSmem = 232448;        // a block's opt-in maximum on sm_90
 
 // The _rn intrinsics keep nvcc from contracting these into an FMA, so the
@@ -468,84 +511,179 @@ grid_grad_kernel(const G* __restrict__ grid, const float* __restrict__ dots,
   }
 }
 
-// K2b: block (x, s) walks pixels x*threads + i*gridDim.x*threads of the
-// group * P pixels of the grids that read source s.  With gsrc, the block
-// accumulates its part of source s's gradient in shared memory (H*W*C
-// floats) and adds it to gsrc at the end.
-template <typename T, typename G>
-__global__ void __launch_bounds__(kNarrowThreads)
+// ---------------------------------------------------------------- K2b
+
+// K2b's grad_out layout: element (b, pixel q, channel j) at b * image +
+// q * pixel + j * channel, rows of pixels evenly strided: NHWC contiguous
+// (dense), or as dense motion's gradient arrives, a plane a channel
+// behind a heatmap's plane (image 4 * P, pixel 1, channel P).
+struct NarrowOut {
+  int dense;
+  int P;                                // Ho * Wo
+  long long image, pixel, channel;
+};
+
+// K2b's pixels a thread takes at once, a block's threads apart.
+constexpr int kNarrowPixels = 4;
+
+// One pixel's (x, y) in one 8-byte (float32) or 4-byte (bfloat16) load,
+// and its grid gradient in one store.
+__device__ __forceinline__ float2 load_xy(const float* g) {
+  return __ldg(reinterpret_cast<const float2*>(g));
+}
+__device__ __forceinline__ float2 load_xy(const __nv_bfloat16* g) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(g)));
+}
+__device__ __forceinline__ void store_xy(float* g, float2 v) {
+  __stcs(reinterpret_cast<float2*>(g), v);
+}
+__device__ __forceinline__ void store_xy(__nv_bfloat16* g, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(g) = __floats2bfloat162_rn(v.x, v.y);
+}
+
+// One pixel of K2b: its corners' image-gradient terms added to the block's
+// float32 sums `part` (when given) and its grid gradient from the staged
+// source `img` (when given), as the first design summed them.
+template <typename T, bool IMG, bool GRD>
+__device__ __forceinline__ float2 narrow_pixel(float gx, float gy,
+                                               const float* g, int C,
+                                               const T* img, float* part,
+                                               int H, int W, int align,
+                                               float fx, float fy) {
+  int idx[4];
+  float wgt[4], dwx[4], dwy[4];
+  corners(gx, gy, H, W, align, idx, wgt, dwx, dwy);
+  float ax = 0.f, ay = 0.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (idx[c] < 0) continue;
+    const int off = idx[c] * C;
+    float dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j >= C) break;
+      if constexpr (IMG) atomicAdd(part + off + j, wgt[c] * g[j]);
+      if constexpr (GRD) dot = fmaf(g[j], to_float(img[off + j]), dot);
+    }
+    ax = fmaf(dot, dwx[c], ax);
+    ay = fmaf(dot, dwy[c], ay);
+  }
+  return make_float2(ax * fx, ay * fy);
+}
+
+// K2b: persistent blocks, block (x, s) for source s, whose grids' pixels
+// it walks kNarrowPixels tiles of a block's threads at a time: thread t
+// takes pixels x * threads * kNarrowPixels + u * threads + t (u <
+// kNarrowPixels), then gridDim.x * threads * kNarrowPixels further on,
+// neighbouring lanes on neighbouring pixels, each thread's loads issued
+// before its arithmetic.  C up to 8, fixed at compile time when CC > 0.
+// With GRD the block stages the source's bytes as they are in shared
+// memory; with IMG it adds the source's gradient into float32 sums there,
+// which the cluster of the source's blocks (gridDim.x of them) adds up in
+// block order through distributed shared memory and writes once in the
+// image type.
+template <typename T, typename G, int CC, bool IMG, bool GRD>
+__global__ void __launch_bounds__(kNarrowThreads<IMG>, IMG ? 2 : 1)
 warp_narrow_backward_kernel(const T* __restrict__ src,
                             const G* __restrict__ grid,
-                            const T* __restrict__ gout,
-                            float* __restrict__ gsrc, G* __restrict__ ggrid,
-                            int n_px, int H, int W, int C, int align) {
-  extern __shared__ float s_acc[];
+                            const T* __restrict__ gout, T* __restrict__ gsrc,
+                            G* __restrict__ ggrid, int n_px, int H, int W,
+                            int C_arg, int align, NarrowOut lay) {
+  constexpr int kThreads = kNarrowThreads<IMG>;
+  constexpr int kTile = kThreads * kNarrowPixels;
+  const int C = CC > 0 ? CC : C_arg;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int s = blockIdx.y;
   const int HWC = H * W * C;
-  if (gsrc) {
-    for (int i = threadIdx.x; i < HWC; i += kNarrowThreads) s_acc[i] = 0.f;
-    __syncthreads();
+  float* const part = reinterpret_cast<float*>(smem);
+  unsigned char* const staged =
+      smem + (IMG ? ((size_t)HWC * sizeof(float) + 15) / 16 * 16 : 0);
+  const T* const src_s = src + (size_t)s * HWC;
+  // the source's bytes from the 16-byte boundary at or before it, as
+  // 16-byte vectors and then the last few bytes one by one
+  const int lead = (int)(reinterpret_cast<uintptr_t>(src_s) & 15);
+  const unsigned char* const from =
+      reinterpret_cast<const unsigned char*>(src_s) - lead;
+  const int end = lead + HWC * (int)sizeof(T);
+  const T* const img = reinterpret_cast<const T*>(staged + lead);
+  if constexpr (GRD) {
+    for (int i = threadIdx.x; i < end / 16; i += kThreads)
+      reinterpret_cast<uint4*>(staged)[i] =
+          __ldg(reinterpret_cast<const uint4*>(from) + i);
+    for (int i = end / 16 * 16 + threadIdx.x; i < end; i += kThreads)
+      staged[i] = from[i];
   }
-  const T* src_s = src + (size_t)s * HWC;
-  const size_t first = (size_t)s * n_px;     // the source's first pixel
-  const float fx = scale_of(W, align), fy = scale_of(H, align);
-  for (int p = blockIdx.x * kNarrowThreads + threadIdx.x; p < n_px;
-       p += gridDim.x * kNarrowThreads) {
-    const G* g2 = grid + (first + p) * 2;
-    int idx[4];
-    float wgt[4], dwx[4], dwy[4];
-    corners(to_float(g2[0]), to_float(g2[1]), H, W, align, idx, wgt, dwx, dwy);
-    const T* go = gout + (first + p) * C;
-    float g[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) g[j] = j < C ? to_float(go[j]) : 0.f;
-    float ax = 0.f, ay = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (idx[c] < 0) continue;
-      const int off = idx[c] * C;
-      float dot = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (j >= C) break;
-        if (gsrc) atomicAdd(&s_acc[off + j], wgt[c] * g[j]);
-        if (ggrid) dot = fmaf(g[j], to_float(__ldg(src_s + off + j)), dot);
-      }
-      ax = fmaf(dot, dwx[c], ax);
-      ay = fmaf(dot, dwy[c], ay);
-    }
-    if (ggrid) {
-      G* o = ggrid + (first + p) * 2;
-      o[0] = from_float<G>(ax * fx);
-      o[1] = from_float<G>(ay * fy);
-    }
+  if constexpr (IMG) {
+    for (int i = threadIdx.x; i < HWC; i += kThreads) part[i] = 0.f;
   }
-  if (!gsrc) return;
   __syncthreads();
-  float* gs = gsrc + (size_t)s * HWC;
-  for (int i = threadIdx.x; i < HWC; i += kNarrowThreads) {
-    const float v = s_acc[i];
-    if (v != 0.f) atomicAdd(gs + i, v);
+
+  // the source's grids are its group of whole images, from image s * group
+  const long long lo = (long long)s * n_px;
+  const T* const go = gout + lo * C;
+  const G* const gr = grid + lo * 2;
+  G* const gg = GRD ? ggrid + lo * 2 : nullptr;
+  const long long first = (long long)s * (n_px / lay.P);
+  // grad_out's channel 0 of pixel p of the source; channel j lies
+  // j * step further on
+  const long long step = lay.dense ? 1 : lay.channel;
+  auto at = [&](int p) -> const T* {
+    if (lay.dense) return go + p * C;
+    const int b = p / lay.P;
+    return gout + (first + b) * lay.image + (p - b * lay.P) * lay.pixel;
+  };
+  const float fx = scale_of(W, align), fy = scale_of(H, align);
+  for (int p0 = blockIdx.x * kTile + threadIdx.x; p0 < n_px;
+       p0 += gridDim.x * kTile) {
+    float2 xy[kNarrowPixels];
+    float g[kNarrowPixels][8];
+#pragma unroll
+    for (int u = 0; u < kNarrowPixels; ++u) {
+      const int p = p0 + u * kThreads;
+      if (p >= n_px) continue;
+      xy[u] = load_xy(gr + 2 * p);
+      const T* e = at(p);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        g[u][j] = j < C ? to_float(__ldg(e + j * step)) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kNarrowPixels; ++u) {
+      const int p = p0 + u * kThreads;
+      if (p >= n_px) continue;
+      const float2 d = narrow_pixel<T, IMG, GRD>(xy[u].x, xy[u].y, g[u], C,
+                                                 img, part, H, W, align, fx,
+                                                 fy);
+      if constexpr (GRD) store_xy(gg + 2 * p, d);
+    }
+  }
+  if constexpr (IMG) {
+    // each block sums its share of the elements over the cluster's
+    // blocks, in block order, and writes them once in the image type
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int n = (int)cluster.num_blocks();
+    T* const out = gsrc + (size_t)s * HWC;
+    for (int i = (int)cluster.block_rank() * kThreads + threadIdx.x; i < HWC;
+         i += n * kThreads) {
+      float v = 0.f;
+      for (int b = 0; b < n; ++b) v += cluster.map_shared_rank(part, b)[i];
+      out[i] = from_float<T>(v);
+    }
+    cluster.sync();                     // no block leaves while read
   }
 }
 
-// grad_image rounded once from its float32 accumulator.
-__global__ void round_kernel(const float* __restrict__ in,
-                             __nv_bfloat16* __restrict__ out, long long n) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x)
-    out[i] = __float2bfloat16_rn(in[i]);
-}
-
-// K2b's launch.
+// K2b's launch, as ops/warp_cuda.py narrow_backward_plan makes it:
+// `blocks` a source (with gsrc, a cluster of them), `smem` bytes each.
 struct Args {
   const void* src;
   const void* grid;
   const void* gout;
-  float* gsrc;        // float32 accumulator of grad_image, or null
-  void* gsrc_out;     // grad_image in the image type (== gsrc for float32)
+  void* gsrc;         // grad_image in the image type, or null
   void* ggrid;        // grad_grid, or null
-  int B, Ho, Wo, group, H, W, C, align;
+  int B, Ho, Wo, group, H, W, C, align, blocks, smem;
+  NarrowOut lay;
   cudaStream_t stream;
 };
 
@@ -650,50 +788,82 @@ cudaError_t launch_wide(const WideArgs& a) {
   return cudaGetLastError();
 }
 
-template <typename T, typename G>
-cudaError_t launch_narrow(const Args& a) {
-  auto kernel = warp_narrow_backward_kernel<T, G>;
-  const int smem = a.gsrc ? a.H * a.W * a.C * (int)sizeof(float) : 0;
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  static int attributed = -1;
-  const cudaError_t err = allow_smem(kernel, kMaxSmem, attributed);
-  if (err != cudaSuccess) return err;
-  const int n_px = a.group * a.Ho * a.Wo;
-  const int Bi = a.B / a.group;
-  const int most = (n_px + kNarrowThreads - 1) / kNarrowThreads;
-  const int blocks = max(1, min(most, (kNarrowBlocks + Bi - 1) / Bi));
-  kernel<<<dim3(blocks, Bi), kNarrowThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.src), static_cast<const G*>(a.grid),
-      static_cast<const T*>(a.gout), a.gsrc, static_cast<G*>(a.ggrid), n_px,
-      a.H, a.W, a.C, a.align);
-  return cudaGetLastError();
+// K2b's kernel for (T, G, CC, IMG, GRD): `run` launches it (with IMG,
+// the blocks of a source as one cluster); `resident` is the blocks the
+// card holds at once with `smem` bytes of dynamic shared memory each.
+template <typename T, typename G, int CC, bool IMG, bool GRD>
+struct NarrowKernel {
+  static cudaError_t allow(int& device) {
+    static int attributed = -1;
+    const cudaError_t err = allow_smem(
+        warp_narrow_backward_kernel<T, G, CC, IMG, GRD>, kMaxSmem, attributed);
+    device = attributed;
+    return err;
+  }
+  static cudaError_t run(const Args& a) {
+    int device = 0;
+    cudaError_t err = allow(device);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(a.blocks, a.B / a.group);
+    cfg.blockDim = dim3(kNarrowThreads<IMG>);
+    cfg.dynamicSmemBytes = (size_t)a.smem;
+    cfg.stream = a.stream;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = (unsigned)a.blocks;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    if (IMG) {
+      cfg.attrs = cluster;
+      cfg.numAttrs = 1;
+    }
+    return cudaLaunchKernelEx(
+        &cfg, warp_narrow_backward_kernel<T, G, CC, IMG, GRD>,
+        static_cast<const T*>(a.src), static_cast<const G*>(a.grid),
+        static_cast<const T*>(a.gout), static_cast<T*>(a.gsrc),
+        static_cast<G*>(a.ggrid), a.group * a.Ho * a.Wo, a.H, a.W, a.C,
+        a.align, a.lay);
+  }
+  static cudaError_t resident(int smem, int* out) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t err = allow(device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, warp_narrow_backward_kernel<T, G, CC, IMG, GRD>,
+          kNarrowThreads<IMG>, smem);
+    *out = sms * per_sm;
+    return err;
+  }
+};
+
+// fn(NarrowKernel<T, G, CC, IMG, GRD>()) for the dtypes (0 float32, 1
+// bfloat16), C (3 fixed at compile time, else any C up to 8) and the
+// gradients asked for.
+template <typename T, typename G, int CC, typename Fn>
+cudaError_t by_need(bool img, bool grd, Fn&& fn) {
+  if (img && grd) return fn(NarrowKernel<T, G, CC, true, true>());
+  if (img) return fn(NarrowKernel<T, G, CC, true, false>());
+  return fn(NarrowKernel<T, G, CC, false, true>());
 }
 
-// K2b: zero the accumulator, run the kernel, round the accumulator to
-// bfloat16 where the image is bfloat16.  dtype (image, grad_out,
-// grad_image) and gdtype (grid, grad_grid): 0 float32, 1 bfloat16.
-int dispatch_narrow(int dtype, int gdtype, const Args& a) {
-  if ((dtype != 0 && dtype != 1) || (gdtype != 0 && gdtype != 1))
-    return (int)cudaErrorInvalidValue;
-  cudaGetLastError();  // clear any earlier error of this runtime
-  const long long n_src = (long long)(a.B / a.group) * a.H * a.W * a.C;
-  cudaError_t err;
-  if (a.gsrc &&
-      (err = cudaMemsetAsync(a.gsrc, 0, n_src * sizeof(float), a.stream)) !=
-          cudaSuccess)
-    return (int)err;
+template <typename T, typename G, typename Fn>
+cudaError_t by_c(int C, bool img, bool grd, Fn&& fn) {
+  return C == 3 ? by_need<T, G, 3>(img, grd, fn)
+                : by_need<T, G, 0>(img, grd, fn);
+}
+
+template <typename Fn>
+cudaError_t narrow_dispatch(int dtype, int gdtype, int C, bool img, bool grd,
+                            Fn&& fn) {
   if (dtype == 0)
-    err = gdtype == 0 ? launch_narrow<float, float>(a)
-                      : launch_narrow<float, __nv_bfloat16>(a);
-  else
-    err = gdtype == 0 ? launch_narrow<__nv_bfloat16, float>(a)
-                      : launch_narrow<__nv_bfloat16, __nv_bfloat16>(a);
-  if (err != cudaSuccess || !a.gsrc || dtype == 0) return (int)err;
-  const long long need = (n_src + 255) / 256;
-  const long long blocks = need < 4096 ? need : 4096;
-  round_kernel<<<(unsigned)blocks, 256, 0, a.stream>>>(
-      a.gsrc, static_cast<__nv_bfloat16*>(a.gsrc_out), n_src);
-  return (int)cudaGetLastError();
+    return gdtype == 0 ? by_c<float, float>(C, img, grd, fn)
+                       : by_c<float, __nv_bfloat16>(C, img, grd, fn);
+  return gdtype == 0 ? by_c<__nv_bfloat16, float>(C, img, grd, fn)
+                     : by_c<__nv_bfloat16, __nv_bfloat16>(C, img, grd, fn);
 }
 
 // 32-bit index math inside one source and one grid, and B in gridDim.y.
@@ -736,21 +906,56 @@ extern "C" int eamm_warp_wide_backward(const void* src, const void* grid,
   return (int)err;
 }
 
-// The same for warp_narrow: 1 <= C <= 8, and with gsrc a source's H*W*C
-// floats must fit in one block's shared memory.
+// K2b: grad_out [B,Ho,Wo,C] of warp_narrow -> grad_image
+// [B/group,H,W,C] in the image type (when gsrc is given) and grad_grid
+// (when ggrid is given); 1 <= C <= 8.  grad_out's element (b, pixel q
+// of Ho * Wo, channel j) lies at b * gout_image + q * gout_pixel +
+// j * gout_channel.  `blocks` a source (with
+// gsrc, at most 8: one cluster) and `smem` bytes of dynamic shared
+// memory a block, as ops/warp_cuda.py narrow_backward_plan makes them.
+// dtype and gdtype as eamm_warp_wide_backward's.  Returns the launch's
+// cudaError_t.
 extern "C" int eamm_warp_narrow_backward(const void* src, const void* grid,
                                          const void* gout, void* gsrc,
-                                         void* gsrc_out, void* ggrid,
-                                         int dtype, int gdtype, int B, int Ho,
-                                         int Wo, int group, int H, int W,
-                                         int C, int align, void* stream) {
+                                         void* ggrid, int dtype, int gdtype,
+                                         int B, int Ho, int Wo, int group,
+                                         int H, int W, int C, int align,
+                                         long long gout_image,
+                                         long long gout_pixel,
+                                         long long gout_channel, int blocks,
+                                         int smem, void* stream) {
+  const NarrowOut lay{gout_image == (long long)Ho * Wo * C &&
+                          gout_pixel == C && gout_channel == 1,
+                      Ho * Wo, gout_image, gout_pixel, gout_channel};
   if (C < 1 || C > 8 || !fits(B, Ho, Wo, group, H, W, C) ||
-      (!gsrc && !ggrid))
+      (!gsrc && !ggrid) || blocks < 1 || (gsrc && blocks > 8) || smem < 0 ||
+      smem > kMaxSmem || (dtype != 0 && dtype != 1) ||
+      (gdtype != 0 && gdtype != 1) || gout_image < 0 || gout_pixel < 0 ||
+      gout_channel < 0)
     return (int)cudaErrorInvalidValue;
-  return dispatch_narrow(dtype, gdtype,
-                          {src, grid, gout, static_cast<float*>(gsrc),
-                           gsrc_out, ggrid, B, Ho, Wo, group, H, W, C, align,
-                           static_cast<cudaStream_t>(stream)});
+  cudaGetLastError();  // clear any earlier error of this runtime
+  const Args a{src, grid, gout, gsrc, ggrid, B, Ho, Wo, group, H, W, C,
+               align, blocks, smem, lay, static_cast<cudaStream_t>(stream)};
+  return (int)narrow_dispatch(dtype, gdtype, C, gsrc != nullptr,
+                              ggrid != nullptr,
+                              [&](auto k) { return k.run(a); });
+}
+
+// The blocks of K2b's kernel for these dtypes, C and gradients that the
+// card holds at once with `smem` bytes of dynamic shared memory each,
+// into *resident; lets the kernel take that much.  Returns a cudaError_t.
+extern "C" int eamm_warp_narrow_backward_resident(int dtype, int gdtype,
+                                                  int C, int need_image,
+                                                  int need_grid, int smem,
+                                                  int* resident) {
+  if (C < 1 || C > 8 || (!need_image && !need_grid) || smem < 0 ||
+      smem > kMaxSmem || (dtype != 0 && dtype != 1) ||
+      (gdtype != 0 && gdtype != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaGetLastError();
+  return (int)narrow_dispatch(
+      dtype, gdtype, C, need_image != 0, need_grid != 0,
+      [&](auto k) { return k.resident(smem, resident); });
 }
 
 extern "C" const char* eamm_error_string(int code) {

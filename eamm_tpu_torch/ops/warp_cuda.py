@@ -39,7 +39,10 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+from typing import Callable
 
+import numpy as np
 import torch
 
 from eamm_tpu_torch import kernels
@@ -130,10 +133,14 @@ def grid_sample_twolevel_b16_plain(image: torch.Tensor,
 # which K6 does not take), then the stream
 _WARP_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _B16_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-_BACKWARD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
-                  + [ctypes.c_void_p])
+# K2b's: pointers (grad_image and grad_grid or null), the dtypes and
+# sizes, grad_out's image, pixel and channel strides, its plan's blocks
+# and shared memory, then the stream
+_NARROW_BACKWARD_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                         + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p])
 # K1b's: pointers (grad_image and grad_grid or null), its workspace and
-# the workspace's ints, then as _BACKWARD_ARGS
+# the workspace's ints, then the dtypes, sizes and the stream
 _WIDE_BACKWARD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
                        + [ctypes.c_int] * 10 + [ctypes.c_void_p])
 
@@ -320,12 +327,148 @@ def wide_backward_bins(grid: torch.Tensor, H: int, W: int,
     return torch.where(inside, key, -1).flatten()
 
 
+# K2b's threads a block, with the image gradient and without
+# (csrc/warp_backward.cu kNarrowThreads), the pixels a thread takes at
+# once (kNarrowPixels), and the most blocks of one cluster: 8, the
+# portable size (the kernel takes 16, which fewer clusters at once made
+# slower)
+NARROW_BACKWARD_THREADS = {True: 512, False: 256}
+NARROW_BACKWARD_PIXELS = 4
+NARROW_BACKWARD_CLUSTER = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class NarrowBackwardPlan:
+    """How K2b launches: the threads a block, the pixels a tile
+    (NARROW_BACKWARD_PIXELS a thread), the tiles of one source's pixels,
+    the blocks a source (with the image gradient one cluster of them),
+    the dynamic shared memory a block and the blocks the card holds at
+    once at that size."""
+    threads: int
+    tile: int
+    tiles: int
+    blocks: int
+    smem_bytes: int
+    resident: int
+
+
+def narrow_backward_smem(H: int, W: int, C: int, dtype: torch.dtype,
+                         need_image: bool, need_grid: bool) -> int:
+    """K2b's shared memory a block for an [H, W, C] source: with the image
+    gradient its float32 sums, with the grid gradient the source's bytes
+    as they are (16 bytes of slack for their offset); raises
+    ``ValueError`` past ``SMEM_LIMIT``."""
+    n = H * W * C
+    smem = ((-(-4 * n // 16) * 16 if need_image else 0)
+            + (-(-n * dtype.itemsize // 16) * 16 + 16 if need_grid else 0))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"warp_narrow_backward: a [{H},{W},{C}] {dtype} "
+                         f"source needs {smem} bytes of shared memory, more "
+                         f"than a block's {SMEM_LIMIT}")
+    return smem
+
+
+def narrow_backward_plan(B: int, Ho: int, Wo: int, group: int, H: int,
+                         W: int, C: int, dtype: torch.dtype, need_image: bool,
+                         need_grid: bool,
+                         resident: Callable[[int], int]) -> NarrowBackwardPlan:
+    """K2b's launch for grad_out [B,Ho,Wo,C] of B // group sources of
+    [H,W,C]: each source's group * Ho * Wo pixels in tiles of a block's
+    threads times NARROW_BACKWARD_PIXELS, walked by persistent blocks, no
+    more than ``resident(smem_bytes)`` over the sources (with the image
+    gradient no more than NARROW_BACKWARD_CLUSTER a source: one cluster),
+    balanced so that every block walks the same number of tiles."""
+    if not 1 <= C <= 8:
+        raise ValueError(f"warp_narrow_backward: C = {C}, need 1 to 8")
+    smem = narrow_backward_smem(H, W, C, dtype, need_image, need_grid)
+    threads = NARROW_BACKWARD_THREADS[need_image]
+    tile = threads * NARROW_BACKWARD_PIXELS
+    tiles = -(-group * Ho * Wo // tile)
+    n = resident(smem)
+    most = max(1, n // (B // group))
+    if need_image:
+        most = min(most, NARROW_BACKWARD_CLUSTER)
+    rounds = -(-tiles // most)
+    return NarrowBackwardPlan(threads=threads, tile=tile, tiles=tiles,
+                              blocks=-(-tiles // rounds), smem_bytes=smem,
+                              resident=n)
+
+
+def narrow_backward_walk(plan: NarrowBackwardPlan, Bi: int,
+                         n_px: int) -> np.ndarray:
+    """How often K2b's blocks take each of the Bi * n_px pixels, as its
+    kernel walks them: thread t of block x of source s takes the source's
+    pixels x * tile + u * threads + t (u < NARROW_BACKWARD_PIXELS), then
+    blocks * tile further on."""
+    taken = np.zeros(Bi * n_px, dtype=np.int64)
+    for s in range(Bi):
+        for x in range(plan.blocks):
+            for p0 in range(x * plan.tile, n_px, plan.blocks * plan.tile):
+                px = (p0 + np.arange(NARROW_BACKWARD_PIXELS)[:, None]
+                      * plan.threads + np.arange(plan.threads)).ravel()
+                np.add.at(taken, s * n_px + px[px < n_px], 1)
+    return taken
+
+
+def narrow_out_layout(grad_out: torch.Tensor) -> tuple[int, int, int] | None:
+    """How K2b reads ``grad_out`` [B,Ho,Wo,C] in place: its (image, pixel,
+    channel) strides in elements, where its rows of pixels are evenly
+    strided (NHWC contiguous, or a plane a channel as dense motion's
+    gradient arrives through its channel-first concatenation); None
+    where it must be made contiguous first."""
+    B, Ho, Wo, C = grad_out.shape
+    sb, sy, sx, sc = grad_out.stride()
+    return (sb, sx, sc) if sy == Wo * sx or Ho == 1 else None
+
+
+@functools.lru_cache(maxsize=None)
+def _narrow_backward_resident(device: torch.device, dtype: int, gdtype: int,
+                              C: int, need_image: bool, need_grid: bool,
+                              smem: int) -> int:
+    """K2b's blocks that ``device`` holds at once with ``smem`` bytes of
+    dynamic shared memory each, asked once per device and kernel (the
+    query also lets the kernel take that much)."""
+    lib, fn = kernels.entry(
+        "warp_backward", "eamm_warp_narrow_backward_resident",
+        [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        kernels.check(lib, fn(dtype, gdtype, C, int(need_image),
+                              int(need_grid), smem, ctypes.byref(out)),
+                      "warp_narrow_backward occupancy")
+    if out.value < 1:
+        raise RuntimeError(f"warp_narrow_backward: no block of {smem} bytes "
+                           f"of shared memory fits on {device}")
+    return out.value
+
+
+def narrow_backward_launch_plan(image: torch.Tensor, grid: torch.Tensor,
+                                need_image: bool, need_grid: bool
+                                ) -> NarrowBackwardPlan:
+    """The plan K2b launches with for these CUDA tensors."""
+    _, H, W, C = image.shape
+    B, Ho, Wo, _ = grid.shape
+    return _narrow_launch_plan(B, Ho, Wo, B // image.shape[0], H, W, C,
+                               image.dtype, grid.dtype, need_image, need_grid,
+                               image.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _narrow_launch_plan(B, Ho, Wo, group, H, W, C, dtype, gdtype, need_image,
+                        need_grid, device) -> NarrowBackwardPlan:
+    return narrow_backward_plan(
+        B, Ho, Wo, group, H, W, C, dtype, need_image, need_grid,
+        functools.partial(_narrow_backward_resident, device, _DTYPES[dtype],
+                          _DTYPES[gdtype], C, need_image, need_grid))
+
+
 def _launch_backward(entry: str, grad_out: torch.Tensor, image: torch.Tensor,
                      grid: torch.Tensor, align_corners: bool, need_image: bool,
                      need_grid: bool):
-    """Launch K1b or K2b for the gradients asked for.  K1b gathers the
-    image gradient in the image type through its workspace; K2b
-    accumulates it in float32 (the output itself for a float32 image)."""
+    """Launch K1b or K2b for the gradients asked for, each writing the
+    image gradient once in the image type: K1b through its workspace
+    (``wide_backward_plan``), K2b as ``narrow_backward_plan`` says,
+    reading grad_out in place where ``narrow_out_layout`` allows."""
     group = check_shared_batch(image, grid)
     if image.dtype not in _DTYPES or grid.dtype not in _DTYPES:
         raise TypeError(f"{entry}: image {image.dtype}, grid {grid.dtype}; "
@@ -334,12 +477,17 @@ def _launch_backward(entry: str, grad_out: torch.Tensor, image: torch.Tensor,
         raise ValueError(f"{entry}: no gradient asked for")
     image = image.contiguous()
     g = grid.contiguous()
-    gout = grad_out.to(image.dtype).contiguous()
-    if gout.shape != (*grid.shape[:3], image.shape[3]):
+    if g.data_ptr() % (2 * g.element_size()):   # (x, y) is one load
+        g = g.clone()
+    if grad_out.shape != (*grid.shape[:3], image.shape[3]):
         raise ValueError(f"{entry}: grad_out {tuple(grad_out.shape)} for "
                          f"image {tuple(image.shape)} and grid "
                          f"{tuple(grid.shape)}")
-    if image.data_ptr() % 16 or gout.data_ptr() % 16:
+    gout = grad_out.to(image.dtype)
+    if entry == "eamm_warp_wide_backward" or narrow_out_layout(gout) is None:
+        gout = gout.contiguous()
+    if image.data_ptr() % 16 or (entry == "eamm_warp_wide_backward"
+                                 and gout.data_ptr() % 16):
         raise ValueError(f"{entry}: image and grad_out need 16-byte "
                          "alignment")
     Bi, H, W, C = image.shape
@@ -360,12 +508,11 @@ def _launch_backward(entry: str, grad_out: torch.Tensor, image: torch.Tensor,
         code = fn(image.data_ptr(), g.data_ptr(), gout.data_ptr(), *outputs,
                   work.data_ptr(), plan.workspace, *sizes)
     else:
-        acc = (grad_image if image.dtype == torch.float32 else
-               torch.empty(image.shape, dtype=torch.float32,
-                           device=image.device)) if need_image else None
-        lib, fn = kernels.entry("warp_backward", entry, _BACKWARD_ARGS)
-        code = fn(image.data_ptr(), g.data_ptr(), gout.data_ptr(),
-                  acc.data_ptr() if need_image else None, *outputs, *sizes)
+        plan = narrow_backward_launch_plan(image, g, need_image, need_grid)
+        lib, fn = kernels.entry("warp_backward", entry, _NARROW_BACKWARD_ARGS)
+        code = fn(image.data_ptr(), g.data_ptr(), gout.data_ptr(), *outputs,
+                  *sizes[:-1], *narrow_out_layout(gout), plan.blocks,
+                  plan.smem_bytes, sizes[-1])
     kernels.check(lib, code, entry)
     return grad_image, grad_grid
 
@@ -408,12 +555,8 @@ def warp_narrow_backward_op(grad_out: torch.Tensor, image: torch.Tensor,
 @warp_narrow_backward_op.register_kernel("cuda")
 def _warp_narrow_backward_cuda(grad_out, image, grid, align_corners,
                                need_image, need_grid):
-    if need_image:
-        H, W, C = image.shape[1:]
-        if 4 * H * W * C > SMEM_LIMIT:
-            raise ValueError(f"warp_narrow_backward: a [{H},{W},{C}] source's "
-                             "float32 gradient does not fit in a block's "
-                             f"{SMEM_LIMIT} bytes of shared memory")
+    H, W, C = image.shape[1:]
+    narrow_backward_smem(H, W, C, image.dtype, need_image, need_grid)
     out = _launch_backward("eamm_warp_narrow_backward", grad_out, image, grid,
                            align_corners, need_image, need_grid)
     warp_narrow_backward.launches += 1

@@ -1,6 +1,6 @@
-"""The port stands apart from JAX, and chip_smoke.py and chip_profile.py
-refuse to run without a card (the card's machine has no JAX; a script must
-never report a result it did not measure there)."""
+"""The port stands apart from JAX, and chip_smoke.py, chip_profile.py and
+chip_trials.py refuse to run without a card (the card's machine has no
+JAX; a script must never report a result it did not measure there)."""
 import os
 import shutil
 import subprocess
@@ -18,7 +18,7 @@ import importlib, pkgutil, sys
 import eamm_tpu_torch
 for mod in pkgutil.walk_packages(eamm_tpu_torch.__path__, "eamm_tpu_torch."):
     importlib.import_module(mod.name)
-import chip_profile, chip_smoke
+import chip_profile, chip_smoke, chip_trials
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "eamm_tpu")
              or m.startswith(("jax.", "flax.", "eamm_tpu.")))
@@ -96,6 +96,12 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("script", ["chip_smoke.py", "chip_profile.py"])
 def test_chip_scripts_fail_without_a_card(script):
     r = _run([script], REPO_ROOT)
+    assert r.returncode != 0
+    assert r.stdout == ""
+
+
+def test_chip_trials_fail_without_a_card():
+    r = _run(["chip_trials.py", "k6", "k2b"], REPO_ROOT)
     assert r.returncode != 0
     assert r.stdout == ""
 
