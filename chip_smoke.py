@@ -3722,7 +3722,14 @@ def graphed(fn, calls: int = 20):
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
-    return graph.replay, calls
+
+    def replay():
+        graph.replay()
+    # the graph reads and writes the tensors that fn holds (made outside
+    # the graph's pool) at their addresses: they must live as long as the
+    # replay, or the next capture's empty_cache may unmap them
+    replay.fn = fn
+    return replay, calls
 
 
 def in_turns(fns: dict, rounds: int = 3, sample_s: float = 0.02) -> dict:

@@ -716,7 +716,8 @@ def k2b_captured_group(csrc: Path, parent: Path) -> dict:
                 fns[name + layout] = cs.graphed(
                     lambda a=a: warp_cuda.warp_narrow_backward(*a))
         use("warp_backward", trials["tree"][0])
-        fns["copy"] = cs.graphed(lambda: grad_out.contiguous())
+        if not grad_out.is_contiguous():    # else a copy is no launch
+            fns["copy"] = cs.graphed(lambda: grad_out.contiguous())
         nchw = image.permute(0, 3, 1, 2).repeat_interleave(
             grid.shape[0] // image.shape[0], dim=0)
         gout = grad_out.permute(0, 3, 1, 2)

@@ -106,6 +106,20 @@ def _port_keypoints(port, src, wav, pose, video):
             {k: v[:T].numpy() for k, v in neutral.items()})
 
 
+_frames = {}
+
+
+def _port_frames(port, route):
+    """The port's uint8 render of a route's clip (for "handle", a handle
+    prepared from its frames), once a module: the route's test and
+    ``test_handle_matches_frames`` read the same render."""
+    if route not in _frames:
+        src, wav, pose, emo = _clip(route)
+        video = port.prepare_emotion(emo) if route == "handle" else emo
+        _frames[route] = port.render_uint8(src, wav, pose, video)
+    return _frames[route]
+
+
 @pytest.mark.parametrize("route", ["frames_u_lt_tp", "frames_u_ge_tp",
                                    "handle", "map"])
 def test_emotional_render_matches_jax(route, request):
@@ -126,7 +140,8 @@ def test_emotional_render_matches_jax(route, request):
         moved = np.abs(ours_kp[key] - neutral_kp[key]).max(axis=0)
         assert moved.reshape(10, -1).max(axis=1)[[1, 4, 6]].min() > 10 * KP_TOL
     ref = jp.render(src, wav, pose, jax_video, add_emo=True)
-    ours = port.render(src, wav, pose, port_video)       # add_emo default
+    # port.render(src, wav, pose, port_video): render_uint8 / 255
+    ours = _port_frames(port, route).astype(np.float32) / 255.0
     assert ours.shape == ref.shape
     l1 = np.abs(ours - ref).mean(axis=(1, 2, 3))
     assert l1.max() < 1e-2, l1
@@ -137,9 +152,8 @@ def test_handle_matches_frames(linear_pair):
     """The handle moves the trunk to prepare time and changes no math
     (tests/test_infer_pipeline.py's bound: at most one uint8 count)."""
     _, port = linear_pair
-    src, wav, pose, emo = _clip("frames_u_lt_tp")
-    ref = port.render_uint8(src, wav, pose, emo)
-    out = port.render_uint8(src, wav, pose, port.prepare_emotion(emo))
+    ref = _port_frames(port, "frames_u_lt_tp")
+    out = _port_frames(port, "handle")
     assert np.abs(out.astype(int) - ref.astype(int)).max() <= 1
 
 

@@ -1,6 +1,8 @@
 """The port stands apart from JAX, and chip_smoke.py, chip_profile.py and
 chip_trials.py refuse to run without a card (the card's machine has no
-JAX; a script must never report a result it did not measure there)."""
+JAX; a script must never report a result it did not measure there); and
+no port test file queues ahead of the suite's longest file."""
+import collections
 import os
 import shutil
 import subprocess
@@ -9,9 +11,8 @@ import sys
 import pytest
 import torch
 
-import bench
 import chip_smoke
-from tests.conftest import REPO_ROOT, TINY_CONFIG
+from tests.conftest import REPO_ROOT
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -75,13 +76,6 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-@pytest.fixture(scope="module")
-def cpu_vs_cpu():
-    """Phase 4 with both sides on the CPU, neutral and emotional renders
-    from one pair of pipelines."""
-    return chip_smoke.cpu_vs_device("cpu")
-
-
 def _run(args, cwd):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
@@ -113,42 +107,6 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert '"ok"' not in r.stdout
 
 
-def test_chip_smoke_configs_are_the_repos():
-    assert chip_smoke.TINY_CONFIG == TINY_CONFIG
-    assert chip_smoke.FULL_CONFIG == bench.FULL_CONFIG
-
-
-def test_chip_smoke_train_params_are_the_yamls():
-    """Phase 8's training parameters are configs/train_part1*.yaml's and
-    phase 9's configs/train_part2.yaml's train_params and augmentation
-    (the card's machine may lack PyYAML), and its model widths the
-    YAMLs'."""
-    from eamm_tpu_torch.config import load_config
-    for mode, params in {**chip_smoke.TRAIN_PARAMS,
-                         "train_part2": chip_smoke.PART2_PARAMS}.items():
-        config = load_config(os.path.join(REPO_ROOT, "configs",
-                                          f"{mode}.yaml"))
-        assert params == config["train_params"], mode
-        assert chip_smoke.FULL_CONFIG["model_params"] == \
-            config["model_params"], mode
-    assert chip_smoke.PART2_AUGMENTATION == config["dataset_params"][
-        "augmentation_params"]
-
-
-def test_chip_smoke_cpu_vs_device_on_cpu(cpu_vs_cpu):
-    """Phase 4 at TINY widths with both sides on the CPU: identical."""
-    result = cpu_vs_cpu["neutral"]
-    assert not result["emotion"] and result["frames"] == 24
-    assert result["l1_max"] == 0.0
-
-
-def test_chip_smoke_emotional_cpu_vs_device_on_cpu(cpu_vs_cpu):
-    """Phase 4's emotional render with both sides on the CPU: identical."""
-    result = cpu_vs_cpu["emotional"]
-    assert result["emotion"] and result["frames"] == 24
-    assert result["l1_max"] == 0.0
-
-
 def test_kernel_sources_are_shipped():
     from eamm_tpu_torch import kernels
     for name in kernels.SOURCES:
@@ -159,3 +117,16 @@ def test_kernel_sources_are_shipped():
         with open(os.path.join(REPO_ROOT, path)) as f:
             assert "def " in f.readlines()[int(line) - 1]
 
+
+def test_no_port_file_queues_ahead_of_the_longest(request):
+    """xdist's ``--dist loadfile`` hands out the files with the most
+    collected tests first, and tests/test_train_loop.py, the suite's
+    longest file, must start early: no tests/test_torch_*.py may collect
+    as many tests as it does (10 when it is not collected), parametrized
+    cases included."""
+    counts = collections.Counter(item.path.name
+                                 for item in request.session.items)
+    limit = counts.get("test_train_loop.py", 10)
+    over = {name: n for name, n in counts.items()
+            if name.startswith("test_torch_") and n >= limit}
+    assert not over, f"{over}: split these files below {limit} tests"

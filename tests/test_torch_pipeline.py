@@ -9,7 +9,8 @@ checkpoints (``jax_variables``): JAX's own random init compiles five
 init programs, which made up most of these files' time on the CPU.
 Bound: per-frame mean |difference| max < 1e-2 and mean < 3e-3, the bound
 tests/test_e2e_parity.py holds the JAX pipeline to against the torch
-reference."""
+reference.  (The pose preparation and the seeded weights are in
+tests/test_torch_pipeline_setup.py.)"""
 import jax
 import numpy as np
 import pytest
@@ -18,8 +19,7 @@ import torch
 from eamm_tpu import compat
 from eamm_tpu.infer import EammPipeline as JaxPipeline
 from eamm_tpu.infer import PipelineOptions as JaxOptions
-from eamm_tpu.infer.pipeline import prepare_pose_np as jax_prepare_pose_np
-from eamm_tpu_torch.infer import EammPipeline, PipelineOptions, prepare_pose_np
+from eamm_tpu_torch.infer import EammPipeline, PipelineOptions
 from tests.conftest import TINY_CONFIG
 from tests.test_infer_pipeline import _inputs
 
@@ -181,21 +181,3 @@ def test_batch_keypoints_match_jax(yuv_pair):
     for key, ref_v in zip(("value", "jacobian"), ref[:2]):
         np.testing.assert_allclose(driving[key].numpy(), np.asarray(ref_v),
                                    rtol=0, atol=1e-5, err_msg=key)
-
-
-@pytest.mark.parametrize("frames,T,smooth", [(1, 30, True), (5, 30, True),
-                                             (40, 30, False), (40, 12, True)])
-def test_prepare_pose_matches_jax(frames, T, smooth):
-    pose = np.random.RandomState(frames).randn(frames, 7).astype(np.float32)
-    np.testing.assert_array_equal(prepare_pose_np(pose, T, smooth),
-                                  jax_prepare_pose_np(pose, T, smooth))
-
-
-def test_from_random_is_seeded():
-    a = EammPipeline.from_random(TINY_CONFIG, 3, PipelineOptions(**OPTS))
-    b = EammPipeline.from_random(TINY_CONFIG, 3, PipelineOptions(**OPTS))
-    c = EammPipeline.from_random(TINY_CONFIG, 4, PipelineOptions(**OPTS))
-    for name in a.models:
-        sa, sb, sc = (p.models[name].state_dict() for p in (a, b, c))
-        assert all(torch.equal(sa[k], sb[k]) for k in sa)
-        assert not all(torch.equal(sa[k], sc[k]) for k in sa)
